@@ -1,11 +1,13 @@
-"""Copy-drift guard: the port's copies of the numpy-only ``core`` and
-``engine`` modules stay the JAX package's modules.
+"""Copy-drift guard: the port's copies of the numpy-only ``core``,
+``engine`` and ``configs`` modules and of ``data/tokens.py`` stay the JAX
+package's modules.
 
 Each copy differs from its original only in its first line (which names the
 original) and its import statements. The behaviour checks run both packages on the
 same seeded tables: ``serialize.pack`` bytes (padding aside), and ``ThallusClient`` /
 ``RpcClient`` scans, including a ``WHERE`` query and the mixed table with
-nulls and utf8. Any change to one copy without the other fails here.
+nulls and utf8; every architecture config, full and reduced, and the token
+tables. Any change to one copy without the other fails here.
 """
 import ast
 import json
@@ -14,15 +16,26 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import dataclasses
+
+import repro.configs as jconfigs
 import repro.core as jcore
+import repro.data.tokens as jtokens
 import repro.engine as jengine
+import repro_torch.configs as tconfigs
 import repro_torch.core as tcore
+import repro_torch.data.tokens as ttokens
 import repro_torch.engine as tengine
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = [f"core/{m}.py" for m in ("__init__", "schema", "recordbatch", "bulk", "serialize",
                                     "fabric", "transport", "protocol")] + \
-         [f"engine/{m}.py" for m in ("__init__", "table", "expressions", "sql", "executor")]
+         [f"engine/{m}.py" for m in ("__init__", "table", "expressions", "sql", "executor")] + \
+         [f"configs/{m}.py" for m in ("__init__", "base", "registry", "deepseek_67b",
+                                      "deepseek_coder_33b", "gemma_2b", "granite_3_2b",
+                                      "internvl2_76b", "llama4_scout_17b_16e", "mamba2_780m",
+                                      "olmoe_1b_7b", "whisper_small", "zamba2_1_2b")] + \
+         ["data/tokens.py"]
 
 
 class _DropImports(ast.NodeTransformer):
@@ -105,3 +118,26 @@ def test_scans_give_the_same_batches(client, sql, dataset):
         assert jb.schema.to_dict() == tb.schema.to_dict()
         np.testing.assert_array_equal(_payload(jcore.pack(jb)), _payload(tcore.pack(tb)))
         assert jb.to_pydict() == tb.to_pydict()
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_configs_are_the_same(arch):
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    jc, tc = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    for a, b in ((jc, tc), (jc.reduced(), tc.reduced())):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert (a.padded_vocab, a.resolved_head_dim, a.num_params()) == \
+            (b.padded_vocab, b.resolved_head_dim, b.num_params())
+    assert [(c.name, s.name, ok) for c, s, ok, _ in jconfigs.all_cells()] == \
+        [(c.name, s.name, ok) for c, s, ok, _ in tconfigs.all_cells()]
+
+
+def test_token_tables_are_the_same():
+    jt = jtokens.make_token_table("toks", 150, 24, 503, seqs_per_batch=64, seed=4)
+    tt = ttokens.make_token_table("toks", 150, 24, 503, seqs_per_batch=64, seed=4)
+    assert len(jt.batches) == len(tt.batches) == 3
+    for jb, tb in zip(jt.batches, tt.batches):
+        np.testing.assert_array_equal(_payload(jcore.pack(jb)), _payload(tcore.pack(tb)))
+        toks = ttokens.batch_to_tokens(tb, 24)
+        np.testing.assert_array_equal(toks, jtokens.batch_to_tokens(jb, 24))
+        np.testing.assert_array_equal(ttokens.shift_labels(toks), jtokens.shift_labels(toks))

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import batch_from_pydict, schema
 from repro_torch.core.device_transport import batch_to_device, batch_to_device_packed
+from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import pack as tpack
 from repro_torch.kernels import take as ttake
 
@@ -122,3 +123,76 @@ def test_landings_on_the_card_equal_the_host(cuda):
             np.testing.assert_array_equal(db[name].cpu().numpy(), batch.column(name).values)
         np.testing.assert_array_equal(db.validity["val"].cpu().numpy(),
                                       batch.column("val").validity)
+
+
+# Attention: float32 with another summation order than the plain version
+# (online softmax over 32-key tiles, FMAs): atol = rtol = 1e-4, against
+# differences of ~1e-6 on unit-normal inputs.
+ATT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 128, 128, 64), (1, 256, 256, 32), (1, 128, 384, 128),
+                                   (2, 100, 300, 64), (2, 300, 100, 64), (1, 1, 1, 64),
+                                   (2, 7, 7, 16), (3, 12, 12, 64), (1, 129, 129, 32),
+                                   (1, 1000, 1000, 64), (1, 40, 70, 256)], ids=str)
+def test_flash_attention_kernel_close_to_plain(cuda, shape, causal):
+    bh, sq, sk, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (torch.randn(bh, s, hd, generator=g, device=cuda) for s in (sq, sk, sk))
+    launches = tattn.flash_attention.launches
+    got = tattn.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == launches + 1
+    want = tattn.attention_ref(q, k, v, causal=causal)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **ATT_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gqa_kernel_reads_shared_kv_heads(cuda, causal):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 77, 8, 64, generator=g, device=cuda)
+    k, v = (torch.randn(2, 77, 2, 64, generator=g, device=cuda) for _ in range(2))
+    torch.testing.assert_close(tattn.flash_gqa(q, k, v, causal=causal),
+                               tattn.flash_gqa_ref(q, k, v, causal=causal), **ATT_TOL)
+
+
+def test_flash_attention_rejects_bad_arguments_on_the_card(cuda):
+    q = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q.half(), q.half(), q.half())
+
+
+def test_reduced_granite_prefill_through_the_kernel(cuda):
+    """A reduced granite (GQA 4:2, head dim 16) on perturbed norms: prefill
+    through the kernel equals prefill through the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import prefill, transformer
+
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), num_kv_heads=2)
+    params = transformer.init_transformer_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                                                 device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for key in ("ln1", "ln2"):
+        params["layers"][key] = 1 + 0.1 * torch.randn(params["layers"][key].shape,
+                                                      generator=g, device=cuda)
+    params["final_norm"] = 1 + 0.1 * torch.randn(cfg.d_model, generator=g, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 45), generator=g, device=cuda)
+    launches = tattn.flash_attention.launches
+    logits, cache = prefill(cfg, params, {"tokens": tokens})
+    assert tattn.flash_attention.launches == launches + cfg.num_layers
+    plain = transformer.flash_gqa
+    transformer.flash_gqa = tattn.flash_gqa_ref
+    try:
+        want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
+    finally:
+        transformer.flash_gqa = plain
+    assert logits[..., :cfg.vocab_size].std() > 0.1
+    torch.testing.assert_close(logits, want_logits, **ATT_TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name], want_cache[name], **ATT_TOL)
