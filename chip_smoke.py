@@ -10,9 +10,12 @@ Phases:
 1. set-up: the card's name and power limit, and the build of every CUDA
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
 2. each kernel against its plain PyTorch version on the card (the datapath
-   kernels bit for bit, flash attention within a stated tolerance) at the
-   main paths' shapes and at edge shapes, then timed (CUDA events, cold L2)
-   beside its bound, its plain version and one PyTorch call as a yardstick;
+   kernels bit for bit, flash attention within a stated tolerance, in
+   float32 at every head dim and at shapes that straddle its tiles, in
+   bfloat16, and its gradients) at the main paths' shapes and at edge
+   shapes, then timed (CUDA events, cold L2) beside its bound, its plain
+   version and one PyTorch call as a yardstick, with the SM clock, power
+   draw and temperature sampled by ``nvidia-smi`` right after each timing;
 3. slice 1 at real size: a 2^24-row x 8 float64 table (1 GiB) scanned
    with ``ThallusClient`` and landed by ``batch_to_device`` (kept resident),
    scanned again with ``RpcClient`` and landed by ``batch_to_device_packed``
@@ -25,7 +28,8 @@ Phases:
    random weights with norm weights ``1 + 0.1 N(0, 1)``) serves two request
    sets through ``repro_torch.launch.serve.serve``; the flash-attention
    launch count is read from this phase alone. Then every cohort's prefill
-   through the kernel is held to a prefill through the plain attention;
+   through the kernel is held to a prefill through the plain attention.
+   Every ``[serve]`` line carries an ``nvidia-smi`` sample;
 5. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
@@ -67,10 +71,14 @@ KERNELS = {
 BIT_EXACT = ("pack_tiles", "unpack_tiles", "take_rows", "bitmap_expand")
 
 # Flash attention against its plain version: float32 in another summation
-# order (online softmax over 32-key tiles, FMAs), so |kernel - plain| <=
+# order (online softmax over 64- or 32-key tiles, FMAs), so |kernel - plain| <=
 # ATT_ATOL + ATT_RTOL |plain| elementwise; differences are ~1e-6 on
 # unit-normal inputs, a wrong mask or tile gives O(1).
 ATT_ATOL = ATT_RTOL = 1e-4
+# bfloat16 in and out: the same float32 result rounded once on each side, so
+# the two may differ by one more bf16 ulp, at most 2^-7 |plain| (7 stored
+# significand bits).
+BF16_ULP = 2.0 ** -7
 # Served prefill through the kernel against prefill through the plain
 # attention: max |kernel - plain| <= SERVE_REL x max |plain|, over the real
 # vocabulary's logits and over each of the k and v caches. 40 float32
@@ -122,14 +130,25 @@ def kernel_case(cases: dict, kernel: str, what: str, got, want) -> None:
 
 
 # ------------------------------------------------------------------ timing
+def gpu_state() -> str:
+    """The card's SM clock, power draw and temperature, as ``nvidia-smi``
+    reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    return "[" + out.replace(", ", " ") + "]"
+
+
 class Timer:
     """Median device time of one call, by CUDA events, with the L2 cache
     flushed before every call (a 256 MiB write, longer on the card than the
-    host needs to enqueue the call, so the events bracket device time)."""
+    host needs to enqueue the call, so the events bracket device time).
+    ``smi`` is the card's state sampled right after the last timing."""
 
     def __init__(self, device, reps: int = 20):
         self.reps = reps
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        self.smi = ""
 
     def ms(self, fn) -> float:
         for _ in range(3):
@@ -142,6 +161,7 @@ class Timer:
             fn()
             end.record()
         torch.cuda.synchronize()
+        self.smi = gpu_state()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
@@ -165,7 +185,7 @@ def phase_setup() -> dict:
     build_s = time.perf_counter() - t0
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "Function properties")):
                 log(f"[setup] nvcc {name}: {line.strip()}")
     log(f"[setup] built {sorted(logs) or 'nothing (cached)'} in {build_s:.2f} s")
     return {"smi": smi, "build_s": build_s}
@@ -246,7 +266,7 @@ def time_kernels(rng, dev, timer) -> dict:
         sid, tid = (torch.from_numpy(a).to(dev) for a in routing(lens))
         sid_l, tid_l = sid.long(), tid.long()
         n_out = sid.shape[0]
-        pack = dict(ms=timer.ms(lambda: pack_tiles(staged, sid, tid)),
+        pack = dict(ms=timer.ms(lambda: pack_tiles(staged, sid, tid)), smi=timer.smi,
                     plain_ms=timer.ms(lambda: pack_ref(staged, sid, tid)),
                     library_ms=timer.ms(lambda: staged[sid_l, tid_l]),
                     nbytes=2 * n_out * 4096 + 8 * n_out)
@@ -257,6 +277,7 @@ def time_kernels(rng, dev, timer) -> dict:
         inv_l = inv.long()
         n_total = inv.shape[0]
         unpack = dict(ms=timer.ms(lambda: unpack_tiles(padded, inv, n_seg=n_seg, max_tiles=max_tiles)),
+                      smi=timer.smi,
                       plain_ms=timer.ms(lambda: unpack_gather_ref(padded, inv, n_seg, max_tiles)),
                       library_ms=timer.ms(lambda: torch.index_select(padded, 0, inv_l)),
                       nbytes=2 * n_total * 4096 + 4 * n_total)
@@ -267,14 +288,14 @@ def time_kernels(rng, dev, timer) -> dict:
         idx = torch.from_numpy(np.sort(rng.choice(n, n_sel, replace=False)).astype(np.int32)).to(dev)
         idx_l = idx.long()
         row_bytes = width * vals.element_size()
-        return dict(ms=timer.ms(lambda: take_rows(vals, idx)),
+        return dict(ms=timer.ms(lambda: take_rows(vals, idx)), smi=timer.smi,
                     plain_ms=timer.ms(lambda: take_ref(vals, idx)),
                     library_ms=timer.ms(lambda: torch.index_select(vals, 0, idx_l)),
                     nbytes=n_sel * (2 * row_bytes + 4))
 
     def bitmap_case(n_bytes):
         bm = torch.from_numpy(rng.integers(0, 256, n_bytes, dtype=np.uint8)).to(dev)
-        return dict(ms=timer.ms(lambda: bitmap_expand(bm)),
+        return dict(ms=timer.ms(lambda: bitmap_expand(bm)), smi=timer.smi,
                     plain_ms=timer.ms(lambda: bitmap_expand_ref(bm, 8 * n_bytes)),
                     library_ms=None, nbytes=9 * n_bytes)
 
@@ -296,7 +317,7 @@ def time_kernels(rng, dev, timer) -> dict:
         log(f"[kernels] {name}: ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
             f"library_ms={row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 5)} "
             f"bound_ms={row['bound_ms']:.5f} bytes={row['nbytes']} "
-            f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
+            f"share_of_bound={row['bound_ms'] / row['ms']:.3f} smi={row['smi']}")
     return main
 
 
@@ -440,7 +461,16 @@ ATT_CASES = ([(2, 128, 128, 64, 2, c) for c in (True, False)]
                 (2, 100, 300, 64, 2, True), (2, 300, 100, 64, 2, True)]
              + [(2, n, n, 64, 2, c) for n in (1, 7, 12, 129, 1000) for c in (True, False)]
              + [(8, 77, 77, 64, 2, True), (2, 45, 45, 16, 2, True), (1, 40, 70, 256, 1, True)]
+             # the kernel's tiles: 64 query rows, 64 keys (hd <= 64) or 32 (hd 128, 256)
+             + [(2, n, n, 64, 2, c) for n in (63, 65) for c in (True, False)]
+             + [(2, 63, 129, 64, 1, True), (2, 129, 63, 64, 1, False), (4, 65, 129, 16, 2, True),
+                (1, 63, 65, 32, 1, True), (1, 65, 33, 128, 1, True), (1, 33, 65, 128, 1, False),
+                (1, 65, 65, 256, 1, True), (1, 31, 97, 256, 1, False)]
              + [(128, 1024, 1024, 64, 32, True)])
+# bfloat16 through the kernel (widened to float32, narrowed back) and the
+# gradients through its autograd function: (BH, Sq, Sk, hd, KV rows, causal).
+ATT_BF16_CASES = [(8, 65, 65, 64, 2, True), (2, 129, 63, 128, 1, False), (128, 1024, 1024, 64, 32, True)]
+ATT_GRAD_CASES = [(8, 130, 97, 64, 2, True), (4, 65, 65, 16, 2, False)]
 GRANITE_ATT = (128, 1024, 1024, 64, 32, True)
 
 
@@ -451,25 +481,62 @@ def attention_inputs(dev, bh, sq, sk, hd, bkv, seed):
             torch.randn(bkv, sk, hd, generator=g, device=dev))
 
 
-def check_attention(dev) -> float:
-    """The kernel against its plain version on every case; raises on the
-    first miss. Returns the largest absolute difference."""
+def within(what: str, got, want, rtol: float) -> float:
+    """Raise unless |got - want| <= ATT_ATOL + rtol |want| elementwise;
+    returns the largest |got - want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bad = ~(diff <= ATT_ATOL + rtol * want.abs())
+    if got.shape != want.shape or bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements beyond atol={ATT_ATOL} "
+                             f"rtol={rtol}, max |diff| {float(diff.max())}")
+    return float(diff.max())
+
+
+def check_attention(dev) -> dict:
+    """The kernel against its plain version on every case, in float32 and
+    bfloat16, and its gradients against the plain version's; raises on the
+    first miss. Returns the largest absolute difference in float32 and in
+    bfloat16."""
     from repro_torch.kernels.attention import attention_ref, flash_attention
     worst = 0.0
     for i, (bh, sq, sk, hd, bkv, causal) in enumerate(ATT_CASES):
         q, k, v = attention_inputs(dev, bh, sq, sk, hd, bkv, seed=100 + i)
-        got = flash_attention(q, k, v, causal=causal)
-        want = attention_ref(q, k, v, causal=causal)
-        diff = (got - want).abs()
-        bad = ~(diff <= ATT_ATOL + ATT_RTOL * want.abs())
         what = f"flash_attention BH={bh} Sq={sq} Sk={sk} hd={hd} kv_rows={bkv} causal={causal}"
-        if got.shape != want.shape or bad.any():
-            raise AssertionError(f"{what}: {int(bad.sum())} elements beyond atol=rtol="
-                                 f"{ATT_ATOL}, max |diff| {float(diff.max())}")
-        worst = max(worst, float(diff.max()))
+        worst = max(worst, within(what, flash_attention(q, k, v, causal=causal),
+                                  attention_ref(q, k, v, causal=causal), ATT_RTOL))
     log(f"[kernels] flash_attention within atol=rtol={ATT_ATOL} of attention_ref in "
         f"{len(ATT_CASES)} cases, max |diff| {worst:.3e}")
-    return worst
+    worst_bf16 = 0.0
+    for i, (bh, sq, sk, hd, bkv, causal) in enumerate(ATT_BF16_CASES):
+        q, k, v = (t.bfloat16() for t in attention_inputs(dev, bh, sq, sk, hd, bkv, seed=200 + i))
+        got = flash_attention(q, k, v, causal=causal)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"flash_attention on bfloat16 returned {got.dtype}")
+        what = f"flash_attention bf16 BH={bh} Sq={sq} Sk={sk} hd={hd} causal={causal}"
+        worst_bf16 = max(worst_bf16, within(what, got, attention_ref(q, k, v, causal=causal),
+                                            ATT_RTOL + BF16_ULP))
+    log(f"[kernels] flash_attention bf16 within atol={ATT_ATOL} rtol={ATT_RTOL}+2^-7 of "
+        f"attention_ref in {len(ATT_BF16_CASES)} cases, max |diff| {worst_bf16:.3e}")
+    worst_grad = 0.0
+    for i, (bh, sq, sk, hd, bkv, causal) in enumerate(ATT_GRAD_CASES):
+        inputs = attention_inputs(dev, bh, sq, sk, hd, bkv, seed=300 + i)
+        w = torch.randn(bh, sq, hd, generator=torch.Generator(device=dev).manual_seed(i),
+                        device=dev)
+        grads = []
+        for attend in (flash_attention, attention_ref):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            (attend(*leaves, causal=causal) * w).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for name, got, want in zip("qkv", *grads):
+            if got is None:
+                raise AssertionError(f"flash_attention gave no gradient for {name}")
+            what = f"flash_attention d{name} BH={bh} Sq={sq} Sk={sk} hd={hd} causal={causal}"
+            worst_grad = max(worst_grad, within(what, got, want, ATT_RTOL))
+    log(f"[kernels] flash_attention gradients within atol=rtol={ATT_ATOL} of attention_ref's "
+        f"in {len(ATT_GRAD_CASES)} cases, max |diff| {worst_grad:.3e} (the backward recomputes "
+        f"attention_ref, so this checks that the kernel's path carries a gradient)")
+    return {"float32": worst, "bfloat16": worst_bf16}
 
 
 def attention_work(bh, sq, sk, hd, bkv, causal) -> tuple[int, float]:
@@ -487,7 +554,7 @@ def time_attention(dev, timer) -> dict:
     q4, k4, v4 = q.view(B, H, sq, hd), k.view(B, KV, sk, hd), v.view(B, KV, sk, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes, flops = attention_work(*GRANITE_ATT)
-    row = dict(ms=timer.ms(lambda: flash_attention(q, k, v, causal=causal)),
+    row = dict(ms=timer.ms(lambda: flash_attention(q, k, v, causal=causal)), smi=timer.smi,
                plain_ms=timer.ms(lambda: attention_ref(q, k, v, causal=causal)),
                library_ms=timer.ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)),
                nbytes=nbytes, flops=flops)
@@ -497,7 +564,7 @@ def time_attention(dev, timer) -> dict:
         f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
         f"(scaled_dot_product_attention) bound_ms={row['bound_ms']:.5f} bytes={nbytes} "
         f"flops={flops:.6e} share_of_bound={row['bound_ms'] / row['ms']:.3f} "
-        f"achieved_TFLOP_per_s={flops / row['ms'] / 1e9:.3f}")
+        f"achieved_TFLOP_per_s={flops / row['ms'] / 1e9:.3f} smi={row['smi']}")
     return row
 
 
@@ -602,7 +669,7 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
             del grown
         log(f"[serve] {label} cohort {i} {tuple(toks.shape)}: kernel vs plain prefill "
             f"max rel err logits {errs['logits']:.3e} k {errs['k']:.3e} v {errs['v']:.3e} "
-            f"(limit {SERVE_REL}); logit std {std:.4f}")
+            f"(limit {SERVE_REL}); logit std {std:.4f} smi={gpu_state()}")
         out.append(dict(shape=list(toks.shape), logit_std=std, **errs))
         del logits, cache, want_logits, want_cache
     return out
@@ -619,7 +686,7 @@ def phase_serve(dev, cfg, wrappers) -> dict:
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
         f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); {n_params} float32 parameters "
-        f"made in {time.perf_counter() - t0:.2f} s")
+        f"made in {time.perf_counter() - t0:.2f} s smi={gpu_state()}")
     sets = {
         "a_defaults": (make_requests(cfg, 8, 12, 8), 4),
         "b_long_prompts": (make_requests(cfg, 4, 1024, 8, min_len=900, seed=1), 4),
@@ -649,12 +716,12 @@ def phase_serve(dev, cfg, wrappers) -> dict:
             f"{row['prompt_lens']}; prefill ms per cohort {[round(x, 3) for x in row['prefill_ms']]}; "
             f"decode ms per step median {statistics.median(row['decode_ms']):.3f} "
             f"(min {min(row['decode_ms']):.3f}, max {max(row['decode_ms']):.3f}, "
-            f"{len(row['decode_ms'])} steps)")
+            f"{len(row['decode_ms'])} steps) smi={gpu_state()}")
         for c in res.completions[:4]:
-            log(f"[serve] {label} req {c.request_id}: {c.tokens}")
+            log(f"[serve] {label} req {c.request_id}: {c.tokens} smi={gpu_state()}")
         out["sets"][label] = row
     log(f"[serve] launches in the serve phase: {launches}; "
-        f"torch.cuda.max_memory_allocated {peak} B")
+        f"torch.cuda.max_memory_allocated {peak} B smi={gpu_state()}")
     out["profile"] = {}
     for label, res in results.items():
         out["sets"][label]["cohorts"] = check_cohorts(cfg, params, label, res, out["profile"])
@@ -698,8 +765,16 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[kernels] every datapath kernel equals its plain version bit for bit "
         f"({sum(c['n'] for c in cases.values())} cases) in {time.perf_counter() - t0:.2f} s")
+    held = torch.cuda.memory_allocated()
     att_err = check_attention(dev)
     torch.cuda.synchronize()
+    # The gradient cases' backward runs on autograd's device thread, whose
+    # cuBLAS handle keeps a workspace of its own; free it so that the serve
+    # phase's peak holds only what serving holds.
+    after = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    log(f"[kernels] memory_allocated before the attention checks {held} B, after {after} B, "
+        f"after clearing the cuBLAS workspaces {torch.cuda.memory_allocated()} B")
     timer = Timer(dev)
     main_times = time_kernels(rng, dev, timer)
     main_times["flash_attention"] = time_attention(dev, timer)
@@ -731,7 +806,10 @@ def main() -> int:
         if name in BIT_EXACT:
             row.update(bit_equal=True, max_abs_err=cases[name]["max_abs_err"], bound_by="bytes")
         else:
-            row.update(max_abs_err=att_err, tolerance={"atol": ATT_ATOL, "rtol": ATT_RTOL},
+            row.update(max_abs_err=att_err["float32"], bf16_max_abs_err=att_err["bfloat16"],
+                       grad_wired=True, grad_backward="attention_ref recompute",
+                       tolerance={"atol": ATT_ATOL, "rtol": ATT_RTOL,
+                                  "bf16_rtol": ATT_RTOL + BF16_ULP},
                        bound_by=t["bound_by"])
         row.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                    library_ms=t["library_ms"])

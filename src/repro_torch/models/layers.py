@@ -9,6 +9,7 @@ PyTorch, as it is plain jnp in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -149,18 +150,27 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as jnp rounds a Python scalar to the
+    type of the array it multiplies."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, position: torch.Tensor,
                      k_positions: torch.Tensor, scale: float | None = None,
                      logit_softcap: float | None = None) -> torch.Tensor:
     """Single-step decode: q (B, 1, H, hd) vs cache (B, S, KV, hd); positions
-    beyond ``position`` (per batch, (B,)) are masked out."""
+    beyond ``position`` (per batch, (B,)) are masked out. Both products run
+    in float32 whatever the dtypes of q and the cache (bf16 by default), as
+    the JAX version's promotion and ``preferred_element_type`` give."""
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, G, hd) * scale
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float()
+    qg = q.reshape(B, KV, G, hd) * _rounded(scale, q.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
     if logit_softcap is not None:
         s = torch.tanh(s / logit_softcap) * logit_softcap
     mask = k_positions[:, None, None, :] <= position[:, None, None, None]

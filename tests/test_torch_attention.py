@@ -7,9 +7,13 @@ installed jax); ``flash_gqa`` and ``chunked_attention`` are held to the JAX
 ``chunked_attention``, which the JAX models run for prefill, and
 ``decode_attention`` to its JAX namesake. Tolerance 3e-5, as the JAX
 package's own flash-vs-model test (``tests/test_kernels.py``): float32 with
-the summation orders of two libraries. The kernel on the card is checked in
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
+the summation orders of two libraries; gradients are held to ``jax.grad``
+at the same tolerance. bfloat16 outputs, computed in float32 and rounded
+once on each side, may differ by one bf16 rounding (``BF16_ULP``). The
+kernel on the card is checked in ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ from repro_torch.kernels import attention as tattn
 from repro_torch.models import layers as tlayers
 
 TOL = dict(rtol=3e-5, atol=3e-5)
+BF16_ULP = 2.0 ** -7
 
 # (BH, Sq, Sk, hd): the JAX kernel tests' shapes, causal with Sq != Sk both
 # ways, ragged lengths, and a short slice of granite's prefill shape.
@@ -139,3 +144,81 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
     meta = torch.empty(2, 8, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         tattn.flash_attention(meta, meta, meta)
+
+
+def test_flash_attention_takes_bfloat16():
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 4, 33, 47, 64, bkv=2)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    tb = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16) for a in jb]
+    got = tattn.flash_attention(*tb, causal=True)
+    want = jax_attention_ref(jb[0], jnp.repeat(jb[1], 2, 0), jnp.repeat(jb[2], 2, 0),
+                             causal=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    assert (np.abs(got - want) <= BF16_ULP * np.maximum(np.abs(got), np.abs(want))).all()
+
+
+def _jax_grads(q, k, v, w, group, causal):
+    def loss(q, k, v):
+        out = jax_attention_ref(q, jnp.repeat(k, group, 0), jnp.repeat(v, group, 0),
+                                causal=causal)
+        return jnp.sum(out * w)
+    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+
+
+@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradients_match_jax_grad(group, causal):
+    rng = np.random.default_rng(20 + group)
+    q, k, v = _qkv(rng, 8, 37, 29, 32, bkv=8 // group)
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    (tattn.flash_attention(tq, tk, tv, causal=causal) * torch.from_numpy(w)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), _jax_grads(q, k, v, w, group, causal)):
+        assert got.shape == want.shape and float(np.abs(want).max()) > 0.1
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_attention_saves_only_its_inputs():
+    """The forward keeps q, k and v for the backward, never the (Sq, Sk)
+    probabilities: the backward recomputes them, on every device."""
+    rng = np.random.default_rng(6)
+    tq, tk, tv = (t.requires_grad_() for t in _t(*_qkv(rng, 4, 40, 50, 16, bkv=2)))
+    shapes = []
+
+    def pack(t):
+        shapes.append(tuple(t.shape))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = tattn.flash_attention(tq, tk, tv, causal=True)
+    assert sorted(shapes) == sorted([(4, 40, 16), (2, 50, 16), (2, 50, 16)])
+    out.sum().backward()
+    assert all(t.grad is not None for t in (tq, tk, tv))
+
+
+def test_kernel_path_carries_the_plain_gradient(monkeypatch):
+    """The card's forward goes through the same autograd function: with the
+    kernel's launch stood in for by its plain version, the gradients are
+    those of the plain version, and the stand-in ran once."""
+    from repro_torch.kernels import _build
+    calls = []
+
+    def stand_in(q, k, v, causal):
+        calls.append(q.shape)
+        with torch.no_grad():
+            return tattn.attention_ref(q, k, v, causal=causal)
+
+    monkeypatch.setattr(_build, "on_cuda", lambda t: True)
+    monkeypatch.setattr(tattn.attention, "_kernel_forward", stand_in)
+    rng = np.random.default_rng(8)
+    q, k, v = _qkv(rng, 4, 24, 24, 16, bkv=2)
+    w = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    (tattn.flash_attention(tq, tk, tv, causal=True) * w).sum().backward()
+    assert calls == [(4, 24, 16)]
+    pq, pk, pv = (t.requires_grad_() for t in _t(q, k, v))
+    (tattn.attention_ref(pq, pk, pv, causal=True) * w).sum().backward()
+    for got, want in ((tq, pq), (tk, pk), (tv, pv)):
+        torch.testing.assert_close(got.grad, want.grad, rtol=0, atol=0)

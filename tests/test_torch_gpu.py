@@ -126,16 +126,24 @@ def test_landings_on_the_card_equal_the_host(cuda):
 
 
 # Attention: float32 with another summation order than the plain version
-# (online softmax over 32-key tiles, FMAs): atol = rtol = 1e-4, against
-# differences of ~1e-6 on unit-normal inputs.
+# (online softmax over 64- or 32-key tiles, FMAs): atol = rtol = 1e-4,
+# against differences of ~1e-6 on unit-normal inputs. A bfloat16 output is
+# that float32 result rounded once on each side, so the two may also differ
+# by one bf16 ulp more: at most 2^-7 |plain| (7 stored significand bits).
 ATT_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_ULP = 2.0 ** -7
 
 
+# The kernel's tiles: 64 query rows, 64 keys (hd <= 64) or 32 (hd 128, 256);
+# the shapes straddle them (63, 65, 129 = 2 x 64 + 1, 33, 65 = 2 x 32 + 1).
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(2, 128, 128, 64), (1, 256, 256, 32), (1, 128, 384, 128),
                                    (2, 100, 300, 64), (2, 300, 100, 64), (1, 1, 1, 64),
                                    (2, 7, 7, 16), (3, 12, 12, 64), (1, 129, 129, 32),
-                                   (1, 1000, 1000, 64), (1, 40, 70, 256)], ids=str)
+                                   (1, 1000, 1000, 64), (1, 40, 70, 256),
+                                   (2, 63, 63, 64), (2, 65, 65, 64), (2, 63, 129, 64),
+                                   (2, 129, 65, 16), (1, 65, 33, 128), (1, 33, 65, 256),
+                                   (1, 65, 65, 256)], ids=str)
 def test_flash_attention_kernel_close_to_plain(cuda, shape, causal):
     bh, sq, sk, hd = shape
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
@@ -156,6 +164,51 @@ def test_flash_gqa_kernel_reads_shared_kv_heads(cuda, causal):
     k, v = (torch.randn(2, 77, 2, 64, generator=g, device=cuda) for _ in range(2))
     torch.testing.assert_close(tattn.flash_gqa(q, k, v, causal=causal),
                                tattn.flash_gqa_ref(q, k, v, causal=causal), **ATT_TOL)
+
+
+def test_flash_attention_kernel_on_unaligned_rows(cuda):
+    """A contiguous view 4 bytes into its storage: the kernel reads float4s,
+    so the wrapper hands it an aligned copy."""
+    base = torch.randn(1 + 2 * 40 * 64, generator=torch.Generator(device=cuda).manual_seed(4),
+                       device=cuda)
+    q = base[1:].view(2, 40, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    torch.testing.assert_close(tattn.flash_attention(q, q, q, causal=True),
+                               tattn.attention_ref(q, q, q, causal=True), **ATT_TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 65, 65, 64, 2), (2, 129, 63, 128, 1), (8, 40, 40, 16, 2)],
+                         ids=str)
+def test_flash_attention_kernel_takes_bfloat16(cuda, shape):
+    bh, sq, sk, hd, bkv = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (torch.randn(n, s, hd, generator=g, device=cuda).bfloat16()
+               for n, s in ((bh, sq), (bkv, sk), (bkv, sk)))
+    launches = tattn.flash_attention.launches
+    got = tattn.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == launches + 1
+    want = tattn.attention_ref(q, k, v, causal=True)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    got, want = got.float(), want.float()
+    limit = ATT_TOL["atol"] + (ATT_TOL["rtol"] + BF16_ULP) * want.abs()
+    assert ((got - want).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_has_the_plain_gradient(cuda, causal):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(8, 130, 64, generator=g, device=cuda)
+    k, v = (torch.randn(2, 97, 64, generator=g, device=cuda) for _ in range(2))
+    w = torch.randn(q.shape, generator=g, device=cuda)
+    grads = []
+    for attend in (tattn.flash_attention, tattn.attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (attend(*leaves, causal=causal) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert got is not None and float(want.abs().max()) > 0.1
+        torch.testing.assert_close(got, want, **ATT_TOL)
 
 
 def test_flash_attention_rejects_bad_arguments_on_the_card(cuda):

@@ -13,7 +13,14 @@ Tolerances: the layers 3e-5 (float32, two libraries' summation orders, as
 ``tests/test_kernels.py``); the 4-layer model ``rtol = atol = 1e-4`` on
 logits of std ~8 and caches of max ~4 (measured differences ~2e-5 and
 ~2e-6: the layers' rounding, carried through depth). Served tokens and the
-response batch must be equal exactly.
+response batch must be equal exactly. A bfloat16 cache written from float32
+k and v holds the same values on both sides or values one bf16 rounding
+apart (``BF16_ULP``: 7 stored significand bits). Prefill on bfloat16 weights
+is held to the JAX prefill on the same weights within ``BF16_REL`` x the
+largest reference value: the two frameworks round to bf16 at other places
+(activations, products' outputs), measured 0.5 on logits of max 50 and 0.04
+on caches of max 4 at this size, while a non-causal attention moves the
+logits by 35.
 """
 import dataclasses
 import subprocess
@@ -28,6 +35,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import decode as jax_decode
+from repro.models import init_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
 from repro.models import layers as jlayers
 from repro.models import param_shapes as jax_param_shapes
@@ -45,6 +53,8 @@ from repro_torch.serving import Batcher, Request, completions_to_batch
 ROOT = Path(__file__).resolve().parents[1]
 LAYER_TOL = dict(rtol=3e-5, atol=3e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_ULP = 2.0 ** -7
+BF16_REL = 2.0 ** -5
 
 
 def _cfgs():
@@ -200,6 +210,51 @@ def test_prefill_and_decode_match_jax(model):
         for name in ("k", "v"):
             np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]), **MODEL_TOL)
         nxt = jl1[:, -1].argmax(-1).astype(np.int32)
+
+
+def test_decode_on_the_default_bf16_cache_matches_jax(model):
+    """``init_cache``'s default dtype is bfloat16 in both packages: decode
+    promotes the cache to float32 for its products, returns float32 logits
+    and writes k and v into the cache rounded to bf16."""
+    jcfg, tcfg, _, jparams, tparams = model
+    jc, tc = jax_init_cache(jcfg, 2, 8), init_cache(tcfg, 2, 8, device="cpu")
+    assert tc["k"].dtype == torch.bfloat16 and jc["k"].dtype == jnp.bfloat16
+    toks = np.random.default_rng(3).integers(0, jcfg.vocab_size, (2, 6)).astype(np.int32)
+    for pos in range(6):
+        jl, jc = jax_decode(jcfg, jparams, jc, jnp.asarray(toks[:, pos:pos + 1]),
+                            jnp.int32(pos))
+        tl, tc = decode(tcfg, tparams, tc, torch.from_numpy(toks[:, pos:pos + 1]), pos)
+        jl = np.asarray(jl)
+        assert tl.dtype == torch.float32 and jl[..., :jcfg.vocab_size].std() > 0.1
+        np.testing.assert_allclose(tl.numpy(), jl, **MODEL_TOL)
+    for name in ("k", "v"):
+        assert tc[name].dtype == torch.bfloat16
+        got = tc[name].float().numpy()
+        want = np.asarray(jc[name].astype(jnp.float32))
+        assert np.abs(want).max() > 0.1 and not want[:, :, 6:].any()
+        assert (np.abs(got - want) <= BF16_ULP * np.maximum(np.abs(got), np.abs(want))).all()
+
+
+def test_prefill_on_bf16_params_matches_jax(model):
+    """bfloat16 weights (the JAX package's ``param_shapes`` default) through
+    prefill: bf16 logits and caches, near the JAX prefill's."""
+    jcfg, tcfg, tree, _, _ = model
+    bf16 = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), tree)
+    tparams = jax.tree.map(
+        lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16), bf16)
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab_size, (3, 21)).astype(np.int32)
+    jl, jc = jax_prefill(jcfg, bf16, {"tokens": jnp.asarray(toks)}, remat="none")
+    tl, tc = prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.bfloat16 and jl.dtype == jnp.bfloat16
+    real = slice(0, jcfg.vocab_size)
+    got = {"logits": tl.float().numpy()[..., real],
+           **{n: tc[n].float().numpy() for n in ("k", "v")}}
+    want = {"logits": np.asarray(jl.astype(jnp.float32))[..., real],
+            **{n: np.asarray(jc[n].astype(jnp.float32)) for n in ("k", "v")}}
+    _assert_not_degenerate(want["logits"], want, jcfg)
+    for name in got:
+        assert got[name].shape == want[name].shape
+        assert np.abs(got[name] - want[name]).max() <= BF16_REL * np.abs(want[name]).max(), name
 
 
 def test_decode_writes_the_cache_in_place(model):
