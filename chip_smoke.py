@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --one-column [DIR]   # see below
 
 Phases:
 
@@ -15,15 +16,19 @@ Phases:
    bfloat16, and its gradients) at the main paths' shapes and at edge
    shapes, then timed (CUDA events, cold L2) beside its bound, its plain
    version and one PyTorch call as a yardstick, with the SM clock, power
-   draw and temperature sampled by ``nvidia-smi`` right after each timing;
+   draw and temperature sampled by ``nvidia-smi`` right after each timing.
+   The take kernel is timed on the main path's 8-column launch, on one
+   column and on one row of one column (its launch floor), each with the
+   host time of a call;
 3. slice 1 at real size: a 2^24-row x 8 float64 table (1 GiB) scanned
    with ``ThallusClient`` and landed by ``batch_to_device`` (kept resident),
    scanned again with ``RpcClient`` and landed by ``batch_to_device_packed``
    (compared with the resident copy); then device pack/unpack of every
    landed batch, device selection ``c0 > 1.5`` against the engine's
-   ``WHERE`` scan, and the validity expand of a nullable landed column
-   against the host's. The datapath kernels' launch counts are read from
-   this phase alone;
+   ``WHERE`` scan through both routes (one ``take_columns`` call per
+   batch, and one ``take_column`` call per column, in turns, 5 runs each),
+   and the validity expand of a nullable landed column against the host's.
+   The datapath kernels' launch counts are read from this phase alone;
 4. slice 2: granite-3-2b at full width and depth (40 layers, float32, seeded
    random weights with norm weights ``1 + 0.1 N(0, 1)``) serves two request
    sets through ``repro_torch.launch.serve.serve``; the flash-attention
@@ -35,9 +40,18 @@ Phases:
 
 Any mismatch raises: the script then exits non-zero and prints no result
 line. It also fails without a CUDA card, and outside a checkout.
+
+``--one-column [DIR]`` only times the one-column take route
+(``take_column`` at the main path's shape: device ms, and host ms per call
+without a synchronize) of this checkout's port and, with DIR, of the port
+in checkout DIR (a parent commit unpacked under ``build/``, say), the two
+in turns in one process, and prints the rows as its last line.
 """
 from __future__ import annotations
 
+import argparse
+import importlib
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -49,13 +63,15 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 ROWS = 1 << 24              # 8 float64 columns: 1 GiB
 BATCH_ROWS = 1 << 18        # benchmarks/query_bench.py's batch: 2 MiB per f64 column
 N_COLS = 8
+SEL_ROWS = int(BATCH_ROWS * 0.0668)  # about the rows of a batch that c0 > 1.5 keeps
+HOST_CALLS = 400            # calls per host-time median
+SLICE_RUNS = 5              # runs per selection line
 MIXED_ROWS = 1 << 20
 WHERE_SQL = "SELECT " + ", ".join(f"c{i}" for i in range(N_COLS)) + " FROM t WHERE c0 > 1.5"
 MIXED_FIXED = ["id", "val", "flag"]
@@ -141,9 +157,14 @@ def gpu_state() -> str:
 
 class Timer:
     """Median device time of one call, by CUDA events, with the L2 cache
-    flushed before every call (a 256 MiB write, longer on the card than the
-    host needs to enqueue the call, so the events bracket device time).
+    flushed before every call (a 256 MiB write). After the flush the device
+    spins for ``HOLD_CYCLES`` (about 1 ms), so that the host has enqueued the
+    whole call before the start event fires and the events bracket device
+    time alone, also for a call whose host side outlasts the flush (8
+    take_column calls, or a plain version of a dozen PyTorch ops).
     ``smi`` is the card's state sampled right after the last timing."""
+
+    HOLD_CYCLES = 2_000_000
 
     def __init__(self, device, reps: int = 20):
         self.reps = reps
@@ -157,12 +178,33 @@ class Timer:
                   torch.cuda.Event(enable_timing=True)) for _ in range(self.reps)]
         for start, end in pairs:
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             start.record()
             fn()
             end.record()
         torch.cuda.synchronize()
         self.smi = gpu_state()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms(*fns, calls: int = HOST_CALLS) -> list[float]:
+    """Median host-clock time of one call of each of ``fns`` over ``calls``
+    calls each, made back to back without a synchronize and, for several
+    functions, in turns call by call (so that a change of the host's pace
+    meets all of them alike): what the caller's thread pays to enqueue the
+    work, the wrapper's Python and the launch included."""
+    for fn in fns:
+        for _ in range(10):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(calls):
+        for fn, ts in zip(fns, times):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return [statistics.median(ts) * 1e3 for ts in times]
 
 
 def bound_ms(nbytes: int, flops: float = 0.0) -> float:
@@ -172,7 +214,7 @@ def bound_ms(nbytes: int, flops: float = 0.0) -> float:
 
 
 # ------------------------------------------------------------------ phases
-def phase_setup() -> dict:
+def phase_setup(sources: tuple[str, ...] | None = None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -181,7 +223,7 @@ def phase_setup() -> dict:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(sources or _build.SOURCES)
     build_s = time.perf_counter() - t0
     for name, out in logs.items():
         for line in out.splitlines():
@@ -225,8 +267,9 @@ def check_pack(rng, dev, cases) -> None:
 
 
 def check_take(rng, dev, cases) -> None:
-    from repro_torch.kernels.take import (bitmap_expand_ref, expand_validity,
-                                          take_column, take_ref)
+    from repro_torch.kernels.take import (MAX_COLUMNS, bitmap_expand_ref, expand_validity,
+                                          take, take_column, take_columns, take_ref,
+                                          take_rows)
     dtypes = (np.float16, np.float32, np.int32, np.int64, np.float64)
     for dtype in dtypes:
         for n, w in ((64, 1), (130, 3), (512, 128), (300, 200), (777, None),
@@ -241,6 +284,56 @@ def check_take(rng, dev, cases) -> None:
             kernel_case(cases, "take_rows", what, got, take_ref(vals, idx_t))
             rows = np.clip(np.where(idx < 0, idx + n, idx), 0, n - 1)
             same_bits(what + " vs numpy", got.cpu(), torch.from_numpy(vals.cpu().numpy()[rows]))
+
+    def table_case(what, cols, idx):
+        launches = take_rows.launches
+        got = take_columns(cols, idx)
+        want_launches = -(-len(cols) // MAX_COLUMNS) if idx.shape[0] else 0
+        if take_rows.launches - launches != want_launches:
+            raise AssertionError(f"{what}: {take_rows.launches - launches} launches for "
+                                 f"{len(cols)} columns, expected {want_launches}")
+        for k, (c, o) in enumerate(zip(cols, got)):
+            kernel_case(cases, "take_rows", f"{what} column {k}", o, take_ref(c, idx))
+
+    # Tables: every dtype, 1-D and 2-D columns of 1, 3, 128 and 200 units
+    # in one table (25 columns: two launches), pinned out-of-range indices.
+    n = 777
+    pinned = [-1, -n, -(n + 2), n, n + 2, 0, n - 1]
+    idx = torch.from_numpy(np.concatenate([rng.integers(0, n, 300), pinned])
+                           .astype(np.int32)).to(dev)
+    mixed = [torch.from_numpy((rng.standard_normal((n,) if w is None else (n, w)) * 1000)
+                              .astype(dtype)).to(dev)
+             for dtype in dtypes for w in (None, 1, 3, 128, 200)]
+    table_case("table of 25 mixed columns", mixed, idx)
+    table_case(f"table of {MAX_COLUMNS} mixed columns", mixed[:MAX_COLUMNS], idx)
+    table_case("table, empty selection", mixed[:7], idx[:0])
+    narrow = [c for c in mixed if c.dim() == 1]
+    table_case("table of 1-D columns of every dtype", narrow, idx)
+    table_case("table of 17 1-D float64 columns", [mixed[20] + k for k in range(17)], idx)
+    table_case("table, one row of one column", mixed[:1], idx[:1])
+    own = [torch.from_numpy(rng.standard_normal(shape)).to(dev)
+           for shape in ((n,), (40, 3), (7,), (1, 5))]
+    table_case("table, columns of 777, 40, 7 and 1 rows", own, idx)
+    sel = torch.from_numpy(np.sort(rng.choice(BATCH_ROWS, SEL_ROWS, replace=False))
+                           .astype(np.int32)).to(dev)
+    batch = [torch.from_numpy(rng.standard_normal(BATCH_ROWS)).to(dev) for _ in range(N_COLS)]
+    table_case(f"table, main path: {SEL_ROWS} of {BATCH_ROWS} rows x {N_COLS} float64",
+               batch, sel)
+    # A column a 6-byte row into its storage (a 2-byte vector) and an output
+    # 4 bytes into its storage (a 4-byte vector for that column alone).
+    base = torch.from_numpy(rng.standard_normal(3 * (n + 1)).astype(np.float16)).to(dev)
+    raw = [c.view(torch.uint8).view(c.shape[0], -1)
+           for c in (base.view(n + 1, 3)[1:], mixed[14], mixed[3])]
+    outs = [torch.empty((idx.shape[0], r.shape[1]), dtype=torch.uint8, device=dev) for r in raw]
+    shifted = torch.empty(outs[1].numel() + 16, dtype=torch.uint8, device=dev)
+    outs[1] = shifted[4:4 + outs[1].numel()].view(outs[1].shape)
+    vec = [take.vector_bytes(r.shape[1], r.data_ptr(), o.data_ptr()) for r, o in zip(raw, outs)]
+    if vec != [2, 4, 16]:
+        raise AssertionError(f"unaligned table case: vectors {vec}, expected [2, 4, 16]")
+    take._gather(raw, outs, idx)
+    for k, (r, o) in enumerate(zip(raw, outs)):
+        kernel_case(cases, "take_rows", f"table, unaligned, column {k} ({vec[k]}-byte vectors)",
+                    o, take_ref(r, idx))
     for n in (1, 7, 8, 100, 1024, 4096, 10000, (1 << 14) + 3):
         mask = rng.integers(0, 2, n).astype(bool)
         bm = torch.from_numpy(np.packbits(mask, bitorder="little")).to(dev)
@@ -249,14 +342,37 @@ def check_take(rng, dev, cases) -> None:
         same_bits(f"bitmap n={n} vs numpy", got.cpu(), torch.from_numpy(mask))
 
 
+def time_one_column(dev, timer, take_pkg) -> dict:
+    """The one-column take route as the main path calls it, ``take_column``
+    of ``take_pkg`` (a port's ``kernels.take``) on a landed 1-D float64
+    column of 2^18 rows with 17511 int32 indices (seed 1, so that every tree
+    times the same data): device ms, host ms per call, the launch floor (one
+    index), plain and ``index_select`` ms. It uses only what the port has
+    had since its first slice, so that it also times an older checkout's."""
+    take_column, take_ref = take_pkg.take_column, take_pkg.take_ref
+    rng = np.random.default_rng(1)
+    col = torch.from_numpy(rng.standard_normal(BATCH_ROWS)).to(dev)
+    idx = torch.from_numpy(np.sort(rng.choice(BATCH_ROWS, SEL_ROWS, replace=False))
+                           .astype(np.int32)).to(dev)
+    idx_l = idx.long()
+    one = idx[:1]
+    return dict(ms=timer.ms(lambda: take_column(col, idx)), smi=timer.smi,
+                host_ms=host_ms(lambda: take_column(col, idx))[0],
+                floor_ms=timer.ms(lambda: take_column(col, one)),
+                plain_ms=timer.ms(lambda: take_ref(col, idx)),
+                library_ms=timer.ms(lambda: torch.index_select(col, 0, idx_l)),
+                nbytes=SEL_ROWS * (2 * 8 + 4))
+
+
 def time_kernels(rng, dev, timer) -> dict:
     """Kernel, plain and library times at the main path's shapes (returned
     per kernel) and at kernel_bench.py's (printed only)."""
     from repro_torch.kernels.pack import (pack_ref, pack_tiles, routing,
                                           stage_segments, unpack_gather_ref,
                                           unpack_tiles, inverse_routing)
-    from repro_torch.kernels.take import (bitmap_expand, bitmap_expand_ref,
-                                          take_ref, take_rows)
+    import repro_torch.kernels.take as take_pkg
+    from repro_torch.kernels.take import (bitmap_expand, bitmap_expand_ref, take_column,
+                                          take_columns, take_ref, take_rows, take_table)
 
     def pack_case(n_seg, seg_bytes):
         segs = [torch.from_numpy(rng.integers(0, 255, seg_bytes, dtype=np.uint8)).to(dev)
@@ -289,35 +405,73 @@ def time_kernels(rng, dev, timer) -> dict:
         idx_l = idx.long()
         row_bytes = width * vals.element_size()
         return dict(ms=timer.ms(lambda: take_rows(vals, idx)), smi=timer.smi,
+                    host_ms=host_ms(lambda: take_rows(vals, idx))[0],
                     plain_ms=timer.ms(lambda: take_ref(vals, idx)),
                     library_ms=timer.ms(lambda: torch.index_select(vals, 0, idx_l)),
                     nbytes=n_sel * (2 * row_bytes + 4))
 
+    def take_table_case():
+        """The main path's launch: one take_columns call over a batch's 8
+        float64 columns; its floor is the same kernel on one row of one
+        column; no one PyTorch call gathers 8 tensors, so the yardstick is
+        8 index_select calls."""
+        cols = {f"c{i}": torch.from_numpy(rng.standard_normal(BATCH_ROWS)).to(dev)
+                for i in range(N_COLS)}
+        idx = torch.from_numpy(np.sort(rng.choice(BATCH_ROWS, SEL_ROWS, replace=False))
+                               .astype(np.int32)).to(dev)
+        idx_l, one = idx.long(), idx[:1]
+        return dict(ms=timer.ms(lambda: take_columns(cols, idx)), smi=timer.smi,
+                    **dict(zip(("host_ms", "per_column_host_ms"), host_ms(
+                        lambda: take_columns(cols, idx),
+                        lambda: [take_column(c, idx) for c in cols.values()]))),
+                    floor_ms=timer.ms(lambda: take_table([cols["c0"]], one)),
+                    plain_ms=timer.ms(lambda: [take_ref(c, idx) for c in cols.values()]),
+                    library_ms=None,
+                    yardstick_ms=timer.ms(lambda: [torch.index_select(c, 0, idx_l)
+                                                   for c in cols.values()]),
+                    yardstick=f"{N_COLS} torch.index_select calls",
+                    nbytes=N_COLS * SEL_ROWS * 2 * 8 + SEL_ROWS * 4)
+
     def bitmap_case(n_bytes):
         bm = torch.from_numpy(rng.integers(0, 256, n_bytes, dtype=np.uint8)).to(dev)
         return dict(ms=timer.ms(lambda: bitmap_expand(bm)), smi=timer.smi,
+                    floor_ms=timer.ms(lambda: bitmap_expand(bm[:1])),
                     plain_ms=timer.ms(lambda: bitmap_expand_ref(bm, 8 * n_bytes)),
                     library_ms=None, nbytes=9 * n_bytes)
 
     main = {}
     # The main path: 8 landed float64 columns of 2^18 rows (2 MiB each); the
-    # selection c0 > 1.5 keeps about 6.7 % of a batch's rows; the mixed
-    # table's batches hold 2^14 rows, 2 KiB of validity bitmap.
+    # selection c0 > 1.5 keeps about 6.7 % of a batch's rows, gathered from
+    # all 8 columns in one launch; the mixed table's batches hold 2^14 rows,
+    # 2 KiB of validity bitmap.
     main["pack_tiles"], main["unpack_tiles"] = pack_case(N_COLS, BATCH_ROWS * 8)
-    main["take_rows"] = take_case(BATCH_ROWS, 1, int(BATCH_ROWS * 0.0668), np.float64)
+    main["take_rows"] = take_table_case()
+    main["take_rows"]["one_column"] = one = time_one_column(dev, timer, take_pkg)
     main["bitmap_expand"] = bitmap_case((1 << 14) // 8)
-    bench = []
+    bench = [(f"take_rows one column, {SEL_ROWS} of {BATCH_ROWS} rows x 1 float64 "
+              f"(take_column; runs 1-4's main-path row)", one)]
     for n_seg, seg_bytes in ((8, 1 << 16), (32, 1 << 20)):
         p, u = pack_case(n_seg, seg_bytes)
         bench += [(f"pack_tiles {n_seg}x{seg_bytes}B", p), (f"unpack_tiles {n_seg}x{seg_bytes}B", u)]
     bench.append(("take_rows 4096 of 16384 rows x128 f32", take_case(1 << 14, 128, 1 << 12, np.float32)))
     bench.append(("bitmap_expand 1 Mbit", bitmap_case((1 << 20) // 8)))
-    for name, row in [(f"{k} (main path)", v) for k, v in main.items()] + bench:
+    main_names = {"take_rows": f"take_rows (main path: {SEL_ROWS} of {BATCH_ROWS} rows x "
+                                f"{N_COLS} float64, one take_columns launch)"}
+    for name, row in [(main_names.get(k, f"{k} (main path)"), v) for k, v in main.items()] + bench:
         row["bound_ms"] = bound_ms(row["nbytes"])
+        extra = "".join(f" {k}={row[k]:.5f}" for k in ("host_ms", "per_column_host_ms", "floor_ms",
+                                                       "yardstick_ms") if k in row)
+        if "yardstick" in row:
+            extra += f" (yardstick: {row['yardstick']})"
         log(f"[kernels] {name}: ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
             f"library_ms={row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 5)} "
             f"bound_ms={row['bound_ms']:.5f} bytes={row['nbytes']} "
-            f"share_of_bound={row['bound_ms'] / row['ms']:.3f} smi={row['smi']}")
+            f"share_of_bound={row['bound_ms'] / row['ms']:.3f}{extra} smi={row['smi']}")
+    table, one = main["take_rows"], main["take_rows"]["one_column"]
+    log(f"[kernels] take_rows: one {N_COLS}-column launch / {N_COLS} one-column launches = "
+        f"{table['ms']:.5f} / {N_COLS * one['ms']:.5f} ms = {table['ms'] / (N_COLS * one['ms']):.4f}; "
+        f"host ms per batch {table['host_ms']:.5f} (take_columns) against "
+        f"{table['per_column_host_ms']:.5f} ({N_COLS} take_column calls)")
     return main
 
 
@@ -327,7 +481,7 @@ def phase_slice(dev, rows: int) -> dict:
     from repro_torch.engine import Engine, make_mixed_table, make_numeric_table
     from repro_torch.kernels.pack import (pack_ref, pack_segments, routing,
                                           stage_segments, unpack_segments)
-    from repro_torch.kernels.take import expand_validity, take_column
+    from repro_torch.kernels.take import expand_validity, take_column, take_columns, take_rows
 
     names = [f"c{i}" for i in range(N_COLS)]
     t0 = time.perf_counter()
@@ -405,24 +559,57 @@ def phase_slice(dev, rows: int) -> dict:
             same_bits(f"batch {i} {n} round trip", o, bits(s))
     del packs, unpacked
 
-    # 4. Selection on the device against the engine's WHERE scan.
-    def select_all():
+    # 4. Selection on the device against the engine's WHERE scan, through
+    # both routes in turns: one take_column call per column, and one
+    # take_columns call per batch (the main path: one launch per batch).
+    def select_per_column():
         picked = []
         for db in resident:
             sel = torch.nonzero(db["c0"] > 1.5).squeeze(1).to(torch.int32)
             picked.append({n: take_column(db[n], sel) for n in names})
         return picked
 
-    picked = timed("device_select_take_column", table.nbytes, select_all)
+    def select_per_batch():
+        picked = []
+        for db in resident:
+            sel = torch.nonzero(db["c0"] > 1.5).squeeze(1).to(torch.int32)
+            picked.append(take_columns({n: db[n] for n in names}, sel))
+        return picked
+
+    routes = {"device_select_take_column": (select_per_column, N_COLS * len(resident)),
+              "device_select_take_columns": (select_per_batch, len(resident))}
+    secs = {key: [] for key in routes}
+    picked = {}
+    for _ in range(SLICE_RUNS):
+        for key, (select, want_launches) in routes.items():
+            launches = take_rows.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            picked[key] = select()
+            torch.cuda.synchronize()
+            secs[key].append(time.perf_counter() - t)
+            if take_rows.launches - launches != want_launches:
+                raise AssertionError(f"{key}: {take_rows.launches - launches} take_rows launches "
+                                     f"per scan, expected {want_launches}")
+    for key, (_, want_launches) in routes.items():
+        med = statistics.median(secs[key])
+        out[key] = {"s": med, "s_min": min(secs[key]), "s_max": max(secs[key]), "runs": secs[key],
+                    "bytes": table.nbytes, "GB_per_s": table.nbytes / med / 1e9,
+                    "take_rows_launches_per_scan": want_launches}
+        log(f"[slice] {key}: {med:.4f} s (median of {SLICE_RUNS}, min {min(secs[key]):.4f}, "
+            f"max {max(secs[key]):.4f}), {table.nbytes} B, {table.nbytes / med / 1e9:.3f} GB/s, "
+            f"{want_launches} take_rows launches per scan")
     where = []
     ThallusClient(server, sink=lambda b: where.append(batch_to_device(b))).run_query(WHERE_SQL, "t")
     n_sel = 0
-    for n in names:
-        got = torch.cat([p[n] for p in picked])
-        want = torch.cat([w[n] for w in where])
-        same_bits(f"selection {n} vs WHERE scan", got, want)
-        n_sel = got.shape[0]
-    log(f"[slice] selection c0 > 1.5: {n_sel} of {rows} rows, equal to the WHERE scan")
+    for key in routes:
+        for n in names:
+            got = torch.cat([p[n] for p in picked[key]])
+            want = torch.cat([w[n] for w in where])
+            same_bits(f"selection {n} through {key} vs WHERE scan", got, want)
+            n_sel = got.shape[0]
+    log(f"[slice] selection c0 > 1.5: {n_sel} of {rows} rows, equal to the WHERE scan "
+        f"through both routes")
     del picked, where
 
     # 5. Validity of a nullable landed column against the host.
@@ -738,11 +925,80 @@ def leaves(tree):
         yield tree
 
 
-def main() -> int:
+def import_port(tree: Path, name: str):
+    """The port's package in checkout ``tree``, imported under ``name``, so
+    that the ports of two checkouts load into one process."""
+    src = tree / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(name, src / "__init__.py",
+                                                  submodule_search_locations=[str(src)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return pkg
+
+
+def one_column(other: Path | None) -> int:
+    """``--one-column [DIR]``: time the one-column take route of this
+    checkout's port, or, with DIR, of DIR's port and this one's in turns in
+    one process (DIR, this, this, DIR), and print the rows as the last line."""
+    import repro_torch.kernels.take as this_take
+    smi = phase_setup(("take",))["smi"]
+    ports = {"this": this_take}
+    if other is not None:
+        import_port(other, "other_port")
+        importlib.import_module("other_port.kernels._build").build_all(("take",))
+        ports["other"] = importlib.import_module("other_port.kernels.take")
+    order = ["other", "this", "this", "other"] if other is not None else ["this"]
+    timer = Timer(torch.device("cuda"))
+    rows = []
+    for label in order:
+        row = time_one_column(torch.device("cuda"), timer, ports[label])
+        row.update(port=label, tree=str(Path(ports[label].__file__).resolve().parents[4]),
+                   bound_ms=bound_ms(row["nbytes"]))
+        log(f"[one-column] {label} ({row['tree']}) take_column {SEL_ROWS} of {BATCH_ROWS} rows "
+            f"x 1 float64: ms={row['ms']:.5f} host_ms={row['host_ms']:.5f} "
+            f"floor_ms={row['floor_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+            f"library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.6f} smi={row['smi']}")
+        rows.append(row)
+    out = {"one_column": rows}
+    if other is not None:
+        # Host time of the two routes call by call in turns, twice (the
+        # host's pace moves within a process), on time_one_column's data.
+        rng = np.random.default_rng(1)
+        col = torch.from_numpy(rng.standard_normal(BATCH_ROWS)).cuda()
+        idx = torch.from_numpy(np.sort(rng.choice(BATCH_ROWS, SEL_ROWS, replace=False))
+                               .astype(np.int32)).cuda()
+        calls = {label: (lambda take=ports[label].take_column: take(col, idx)) for label in ports}
+        out["host_ms_in_turns"] = []
+        for pair in (("other", "this"), ("this", "other")):
+            ms = dict(zip(pair, host_ms(*(calls[label] for label in pair))))
+            out["host_ms_in_turns"].append(ms)
+            log(f"[one-column] host ms per take_column call, the two ports in turns call by "
+                f"call ({HOST_CALLS} calls each): this {ms['this']:.5f}, other {ms['other']:.5f}")
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--one-column", nargs="?", const=True, type=Path, metavar="DIR",
+                    help="only time the one-column take route of this checkout's port and, "
+                         "in turns in one process, of the port in checkout DIR")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
+    other = args.one_column.resolve() if isinstance(args.one_column, Path) else None
+    for tree in (ROOT, other):
+        if tree is not None and not (tree / "src" / "repro_torch").is_dir():
+            print(f"chip_smoke: {tree} holds no src/repro_torch; run from a checkout",
+                  file=sys.stderr)
+            return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    if args.one_column:
+        return one_column(other)
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import attention as attention_mod
     from repro_torch.kernels.pack import pack as pack_mod
@@ -805,6 +1061,8 @@ def main() -> int:
                "launches": launches[name]}
         if name in BIT_EXACT:
             row.update(bit_equal=True, max_abs_err=cases[name]["max_abs_err"], bound_by="bytes")
+            row.update({k: t[k] for k in ("host_ms", "floor_ms", "yardstick_ms", "yardstick")
+                        if k in t})
         else:
             row.update(max_abs_err=att_err["float32"], bf16_max_abs_err=att_err["bfloat16"],
                        grad_wired=True, grad_backward="attention_ref recompute",
@@ -813,6 +1071,15 @@ def main() -> int:
                        bound_by=t["bound_by"])
         row.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                    library_ms=t["library_ms"])
+        if name == "take_rows":
+            one = t["one_column"]
+            row.update(shape=f"{SEL_ROWS} of {BATCH_ROWS} rows x {N_COLS} float64 columns, "
+                             f"one launch",
+                       launches_per_scan={k: slice_out[k]["take_rows_launches_per_scan"]
+                                          for k in ("device_select_take_columns",
+                                                    "device_select_take_column")},
+                       one_column={k: one[k] for k in ("ms", "host_ms", "floor_ms", "plain_ms",
+                                                       "library_ms", "bound_ms")})
         report.append(row)
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
         f"phases={json.dumps({'slice': slice_out, 'serve': serve_out})}")

@@ -88,6 +88,105 @@ def test_take_kernel_on_unaligned_rows(cuda):
     _assert_bits_equal(ttake.take_rows(vals, idx), ttake.take_ref(vals, idx))
 
 
+def _pinned_indices(rng, n, count=200):
+    idx = np.concatenate([rng.integers(0, n, count), [-1, -n, -(n + 2), n, n + 2]])
+    return torch.from_numpy(idx.astype(np.int32))
+
+
+def _table_columns(rng, n, count, kind):
+    """``count`` columns of ``n`` rows over the take kernel's dtypes:
+    ``mixed``, 1-D and 2-D of 1, 3, 128 and 200 units; ``narrow``, 1-D
+    float64; ``narrow_mixed``, 1-D of every dtype."""
+    dtypes = (np.float16, np.float32, np.int32, np.int64, np.float64, np.int8)
+    widths = {"mixed": (None, 1, 3, 128, 200, None, 3)}.get(kind, (None,))
+    if kind == "narrow":
+        dtypes = (np.float64,)
+    return [torch.from_numpy((rng.standard_normal((n,) if w is None else (n, w)) * 100)
+                             .astype(dtypes[k % len(dtypes)]))
+            for k, w in ((k, widths[k % len(widths)]) for k in range(count))]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "narrow", "narrow_mixed"])
+@pytest.mark.parametrize("count", [1, 8, 9, 16, 17, 35])
+@pytest.mark.parametrize("n_out", [0, 205])
+def test_take_table_kernel_equals_plain(cuda, kind, count, n_out):
+    rng = np.random.default_rng(count)
+    n = 513
+    cols = [c.to(cuda) for c in _table_columns(rng, n, count, kind)]
+    idx = _pinned_indices(rng, n)[:n_out].to(cuda)
+    launches = ttake.take_rows.launches
+    got = ttake.take_table(cols, idx)
+    assert ttake.take_rows.launches == launches + (-(-count // ttake.MAX_COLUMNS) if n_out else 0)
+    assert len(got) == count
+    for c, o in zip(cols, got):
+        _assert_bits_equal(o, ttake.take_ref(c, idx))
+
+
+def test_take_table_kernel_clamps_each_column_to_its_rows(cuda):
+    rng = np.random.default_rng(5)
+    cols = [torch.from_numpy(rng.standard_normal(shape)).to(cuda)
+            for shape in ((300,), (40, 3), (7,), (1, 5))]
+    idx = _pinned_indices(rng, 300).to(cuda)
+    for c, o in zip(cols, ttake.take_columns(cols, idx)):
+        _assert_bits_equal(o, ttake.take_ref(c, idx))
+
+
+def test_take_table_kernel_on_unaligned_rows_and_outputs(cuda):
+    """One column of a table a 6-byte row into its storage (only a 2-byte
+    vector divides it), and one output 4 bytes into its storage (a 4-byte
+    vector for that column alone); the others take 16-byte vectors."""
+    rng = np.random.default_rng(6)
+    n = 301
+    base = torch.from_numpy(rng.standard_normal(3 * (n + 1)).astype(np.float16)).to(cuda)
+    cols = [base.view(n + 1, 3)[1:], torch.from_numpy(rng.standard_normal((n, 4))).to(cuda)]
+    cols += [torch.from_numpy(rng.standard_normal((n, 8)).astype(np.float32)).to(cuda)]
+    idx = _pinned_indices(rng, n).to(cuda)
+    for c, o in zip(cols, ttake.take_table(cols, idx)):
+        _assert_bits_equal(o, ttake.take_ref(c, idx))
+    raw = [c.view(torch.uint8).view(n, -1) for c in cols]
+    outs = [torch.empty((idx.shape[0], r.shape[1]), dtype=torch.uint8, device=cuda) for r in raw]
+    shifted = torch.empty(outs[1].numel() + 16, dtype=torch.uint8, device=cuda)
+    outs[1] = shifted[4:4 + outs[1].numel()].view(outs[1].shape)
+    vec = [ttake.take.vector_bytes(r.shape[1], r.data_ptr(), o.data_ptr())
+           for r, o in zip(raw, outs)]
+    assert vec == [2, 4, 16]
+    launches = ttake.take_rows.launches
+    ttake.take._gather(raw, outs, idx)
+    assert ttake.take_rows.launches == launches + 1
+    for r, o in zip(raw, outs):
+        _assert_bits_equal(o, ttake.take_ref(r, idx))
+
+
+def test_take_table_launches_once_per_max_columns(cuda):
+    """Counted by the profiler, not by the wrapper: ceil(n / MAX_COLUMNS)
+    kernels for n columns, none for an empty selection."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = ttake.MAX_COLUMNS
+    cols = [torch.arange(100, dtype=torch.float64, device=cuda) + c for c in range(2 * k + 1)]
+    idx = torch.tensor([3, -1, 200], dtype=torch.int32, device=cuda)
+    for count, n_idx, want in ((1, 3, 1), (k, 3, 1), (k + 1, 3, 2), (2 * k + 1, 3, 3),
+                               (k + 1, 0, 0)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ttake.take_table(cols[:count], idx[:n_idx])
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and ("take_narrow_kernel" in e.name or "take_wide_kernel" in e.name)]
+        assert len(kernels) == want, (count, n_idx)
+
+
+def test_take_table_rejects_bad_arguments_on_the_card(cuda):
+    col = torch.zeros(4, device=cuda)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for cols, indices in (([col, col.cpu()], idx), ([col], idx.cpu()),
+                          ([col, col.view(2, 2, 1)], idx),
+                          ([torch.zeros((2, 4), device=cuda).t()], idx), ([col], idx.long())):
+        with pytest.raises(ValueError):
+            ttake.take_table(cols, indices)
+    with pytest.raises(IndexError):
+        ttake.take_table([col, col[:0]], idx)
+
+
 @pytest.mark.parametrize("n", [1, 7, 8, 100, 1024, 10000, (1 << 14) + 3])
 def test_bitmap_kernel_equals_plain(cuda, n):
     mask = np.random.default_rng(n).integers(0, 2, n).astype(bool)

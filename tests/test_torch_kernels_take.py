@@ -1,5 +1,5 @@
-"""Port vs JAX package: selection take and validity expand
-(repro_torch.kernels.take).
+"""Port vs JAX package: selection take (one column and a table of columns)
+and validity expand (repro_torch.kernels.take).
 
 Inputs come from a seeded numpy generator and go through the JAX functions
 (Pallas in interpret mode) and the port's on the CPU, where the port's
@@ -68,6 +68,66 @@ def test_index_rule_pinned():
     assert np.asarray(jtake.take_column(vals.numpy(), idx.numpy())).tolist() == want
 
 
+def _table(case):
+    """(columns, indices) for a take_columns case: numpy columns of mixed
+    dtypes and 1-D/2-D shapes, made from a numpy seed."""
+    rng = np.random.default_rng(3)
+    n = 150
+    specs = [(np.float32, (n,)), (np.int32, (n, 3)), (np.float16, (n, 128)),
+             (np.int8, (n,)), (np.uint8, (n, 200)), (np.float64, (n,)), (np.int64, (n, 2))]
+    if case == "over_k":
+        specs = [specs[k % 4] for k in range(2 * ttake.MAX_COLUMNS + 3)]
+    if case == "own_rows":  # each column clamps against its own rows
+        specs = [(np.float32, (n,)), (np.int32, (40, 3)), (np.float64, (7,)), (np.uint8, (1, 5))]
+    cols = [(rng.standard_normal(shape) * 100).astype(dtype) for dtype, shape in specs]
+    if case == "empty_selection":
+        idx = np.zeros(0, np.int32)
+    elif case == "pinned":
+        idx = np.array([-1, -n, -(n + 2), n, n + 2, 0, n - 1], np.int32)
+    else:
+        idx = _indices(rng, n, 60)
+    return cols, idx
+
+
+def _jax_take(vals, idx):
+    """The JAX package's take of one column: the Pallas kernel in interpret
+    mode (its plain take_ref for an empty selection, which the kernel's grid
+    does not take). JAX without x64 truncates 64-bit values, so numpy is the
+    reference for those."""
+    if vals.dtype.itemsize == 8:
+        return vals[_wrapped_clamped(idx, vals.shape[0])]
+    if idx.size == 0:
+        return np.asarray(jtake.take_ref(jnp.asarray(vals), jnp.asarray(idx)))
+    return np.asarray(jtake.take_column(vals, idx))
+
+
+@pytest.mark.parametrize("case", ["list", "dict", "empty_selection", "pinned", "over_k",
+                                  "own_rows"])
+def test_take_columns_equals_jax(case):
+    cols, idx = _table(case)
+    if case == "dict":
+        got = ttake.take_columns({f"c{k}": torch.from_numpy(c) for k, c in enumerate(cols)},
+                                 torch.from_numpy(idx.astype(np.int64)))
+        assert list(got) == [f"c{k}" for k in range(len(cols))]
+        got = list(got.values())
+    else:
+        got = ttake.take_columns([torch.from_numpy(c) for c in cols], idx)
+        assert isinstance(got, list)
+    assert len(got) == len(cols)
+    for vals, out in zip(cols, got):
+        want = _jax_take(vals, idx)
+        assert out.dtype == torch.from_numpy(vals).dtype and out.shape == want.shape
+        np.testing.assert_array_equal(out.numpy(), want)
+        np.testing.assert_array_equal(out.numpy(), vals[_wrapped_clamped(idx, vals.shape[0])])
+        np.testing.assert_array_equal(
+            out.numpy(), ttake.take_column(torch.from_numpy(vals), idx).numpy())
+
+
+def test_take_columns_of_nothing():
+    idx = torch.zeros(3, dtype=torch.int32)
+    assert ttake.take_columns([], idx) == [] and ttake.take_columns({}, idx) == {}
+
+
 @pytest.mark.parametrize("n", [1, 8, 100, 1024, 4096, 10000])
 def test_expand_validity_equals_jax(n):
     rng = np.random.default_rng(n)
@@ -119,8 +179,35 @@ def test_take_rows_rejects_bad_arguments(case):
         ttake.take_rows(vals, idx)
 
 
+@pytest.mark.parametrize("case", ["two_devices", "non_contiguous", "3d", "empty_source",
+                                  "idx_dtype"])
+def test_take_table_rejects_bad_arguments(case):
+    cols = [torch.zeros(4), torch.zeros((4, 2), dtype=torch.int16)]
+    idx = torch.zeros(3, dtype=torch.int32)
+    err = ValueError
+    if case == "two_devices":
+        cols.append(torch.zeros(4, device="meta"))
+    elif case == "non_contiguous":
+        cols.append(torch.zeros((2, 4)).t())
+    elif case == "3d":
+        cols.append(torch.zeros((4, 2, 2)))
+    elif case == "empty_source":
+        cols, err = cols + [torch.zeros(0)], IndexError
+    else:
+        idx = idx.long()
+    with pytest.raises(err):
+        ttake.take_table(cols, idx)
+    if case in ("two_devices", "3d", "empty_source"):
+        # take_columns makes columns contiguous and casts indices first
+        with pytest.raises(err):
+            ttake.take_columns(cols, idx)
+
+
 def test_cpu_tensors_count_no_launch():
     before = (ttake.take_rows.launches, ttake.bitmap_expand.launches)
     ttake.take_column(torch.arange(5.0), torch.tensor([1, -1], dtype=torch.int32))
+    ttake.take_columns({"a": torch.arange(5.0), "b": torch.ones((5, 3))}, np.array([0, 7]))
+    ttake.take_table([torch.arange(5.0)] * (ttake.MAX_COLUMNS + 1),
+                     torch.tensor([4], dtype=torch.int32))
     ttake.expand_validity(torch.tensor([5], dtype=torch.uint8), 3)
     assert (ttake.take_rows.launches, ttake.bitmap_expand.launches) == before
