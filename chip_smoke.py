@@ -35,7 +35,23 @@ Phases:
    launch count is read from this phase alone. Then every cohort's prefill
    through the kernel is held to a prefill through the plain attention.
    Every ``[serve]`` line carries an ``nvidia-smi`` sample;
-5. report: a ``{"kernels": [...]}`` line, the card line, and last the
+5. train: granite-3-2b at full width and depth again. One loss and gradient
+   of a 4 x 1024 batch (``remat="full"``) through the kernel is held to the
+   same through the plain attention, before any optimizer state exists.
+   Then the launcher's pipeline (2 replicated ``ThallusServer``s,
+   ``ThallusLoader(transport="thallus")``, the batch to the card,
+   ``make_train_step``, AdamW at a constant 1e-3) at its default shape, 8 x
+   128 with remat none, and at 4 x 1024 with remat full: one warm-up step,
+   three timed steps (host seconds, tokens/s, loss, gradient norm, loader
+   transport seconds, peak memory, an ``nvidia-smi`` sample and the card's
+   name and power limit on each line; the flash launches counted over these
+   alone; the loss must be finite and fall) and one step under
+   ``torch.profiler`` (device time by kernel class and the idle share).
+   Last, ``python -m repro_torch.launch.train --reduced`` is run, killed
+   after its step-4 checkpoint and resumed: the resumed losses must equal
+   an uninterrupted run's within 1e-6 relative. No full-width checkpoint is
+   written;
+6. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any mismatch raises: the script then exits non-zero and prints no result
@@ -102,6 +118,18 @@ BF16_ULP = 2.0 ** -7
 # kernel gives differences of the order of the values.
 SERVE_REL = 1e-3
 ARCH = "granite-3-2b"
+# Training: one loss through the kernel against one through the plain
+# attention, within TRAIN_LOSS_REL relative (the forward's ~1e-6 differences
+# summed over 4096 tokens), and every gradient leaf within SERVE_REL of the
+# plain leaf's largest value. The shapes: the launcher's default (8 x 128,
+# remat none) and slice 2's long prompt (4 x 1024, remat full); AdamW at a
+# constant 1e-3 (no warm-up, so that every timed step moves the weights).
+TRAIN_LOSS_REL = 1e-4
+TRAIN_OPT = dict(learning_rate=1e-3, warmup_steps=0, decay_steps=100)
+TRAIN_SHAPES = {"c_default": (8, 128, "none"), "d_long": (4, 1024, "full")}
+TRAIN_STEPS = 3
+RESUME_ARGS = ["--arch", ARCH, "--reduced", "--steps", "8", "--ckpt-every", "4",
+               "--log-every", "1", "--lr", "1e-2"]
 
 
 def log(*parts) -> None:
@@ -659,6 +687,7 @@ ATT_CASES = ([(2, 128, 128, 64, 2, c) for c in (True, False)]
 ATT_BF16_CASES = [(8, 65, 65, 64, 2, True), (2, 129, 63, 128, 1, False), (128, 1024, 1024, 64, 32, True)]
 ATT_GRAD_CASES = [(8, 130, 97, 64, 2, True), (4, 65, 65, 16, 2, False)]
 GRANITE_ATT = (128, 1024, 1024, 64, 32, True)
+GRANITE_TRAIN_ATT = (256, 128, 128, 64, 64, True)  # 8 x 32 query rows, 8 x 8 K/V rows
 
 
 def attention_inputs(dev, bh, sq, sk, hd, bkv, seed):
@@ -733,25 +762,36 @@ def attention_work(bh, sq, sk, hd, bkv, causal) -> tuple[int, float]:
     return 4 * hd * (2 * bh * sq + 2 * bkv * sk), 4.0 * bh * hd * pairs
 
 
-def time_attention(dev, timer) -> dict:
+def time_attention_at(dev, timer, shape, batch, label) -> dict:
+    """The kernel, its plain version and SDPA at ``shape`` (BH, Sq, Sk, hd,
+    K/V rows, causal), ``batch`` sequences of BH / batch heads."""
     from repro_torch.kernels.attention import attention_ref, flash_attention
-    bh, sq, sk, hd, bkv, causal = GRANITE_ATT
+    bh, sq, sk, hd, bkv, causal = shape
     q, k, v = attention_inputs(dev, bh, sq, sk, hd, bkv, seed=7)
-    B, H, KV = 4, bh // 4, bkv // 4
+    B, H, KV = batch, bh // batch, bkv // batch
     q4, k4, v4 = q.view(B, H, sq, hd), k.view(B, KV, sk, hd), v.view(B, KV, sk, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    nbytes, flops = attention_work(*GRANITE_ATT)
+    nbytes, flops = attention_work(*shape)
     row = dict(ms=timer.ms(lambda: flash_attention(q, k, v, causal=causal)), smi=timer.smi,
                plain_ms=timer.ms(lambda: attention_ref(q, k, v, causal=causal)),
                library_ms=timer.ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)),
-               nbytes=nbytes, flops=flops)
+               nbytes=nbytes, flops=flops, shape=list(shape))
     row["bound_ms"] = bound_ms(nbytes, flops)
     row["bound_by"] = "operations" if flops / FP32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes"
-    log(f"[kernels] flash_attention (main path, BH={bh} S={sq} hd={hd} kv_rows={bkv} causal): "
+    log(f"[kernels] flash_attention ({label}, BH={bh} S={sq} hd={hd} kv_rows={bkv} causal): "
         f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
         f"(scaled_dot_product_attention) bound_ms={row['bound_ms']:.5f} bytes={nbytes} "
         f"flops={flops:.6e} share_of_bound={row['bound_ms'] / row['ms']:.3f} "
         f"achieved_TFLOP_per_s={flops / row['ms'] / 1e9:.3f} smi={row['smi']}")
+    return row
+
+
+def time_attention(dev, timer) -> dict:
+    """The kernel at granite's long prefill (the serve path's and the 4 x
+    1024 train shape's) and, under ``train_default``, at the launcher's
+    default train shape (8 x 128)."""
+    row = time_attention_at(dev, timer, GRANITE_ATT, 4, "main path")
+    row["train_default"] = time_attention_at(dev, timer, GRANITE_TRAIN_ATT, 8, "train 8 x 128")
     return row
 
 
@@ -768,11 +808,40 @@ def perturbed_params(cfg, dev):
     return params
 
 
+KERNEL_CLASSES = ("flash_attention", "matmul", "attention_backward", "optimizer", "other")
+
+
+def _phase_of(event) -> str | None:
+    """The train step's phase that launched a profiled op: the flash
+    kernel's backward (autograd's node of the plain recompute) or the
+    optimizer (``adamw_update``'s profiler range); None elsewhere."""
+    while event is not None:
+        if "_FlashAttentionBackward" in event.name:
+            return "attention_backward"
+        if event.name == "adamw_update":
+            return "optimizer"
+        event = event.cpu_parent
+    return None
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attention"
+    if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
+        return "matmul"
+    return "other"
+
+
 def profile_device(label: str, fn) -> dict:
-    """Device time of ``fn`` by kernel, from a ``torch.profiler`` window:
-    the flash kernel, matrix products (cuBLAS/CUTLASS kernels) and the rest,
-    against the window's host-clock time (ending in a synchronize). Kernels
-    of one stream do not overlap, so their sum is the device's busy time."""
+    """Device time of ``fn`` by kernel class, from a ``torch.profiler``
+    window: the flash kernel's forward, matrix products (cuBLAS/CUTLASS
+    kernels), the attention backward (every kernel of the flash kernel's
+    plain-recompute backward), the optimizer (every kernel under
+    ``adamw_update``) and the rest, against the window's host-clock time
+    (ending in a synchronize). Kernels of one stream do not overlap, so
+    their sum is the device's busy time. A kernel is put in a phase by the
+    op that launched it; one no op launched, by its name alone."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -780,26 +849,32 @@ def profile_device(label: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.events()
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    groups = dict.fromkeys(KERNEL_CLASSES, 0.0)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation \
+                and e.name != "adamw_update":
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, ms in by_name.items():
-        low = name.lower()
-        key = ("flash_attention" if "flash_fwd" in low else
-               "matmul" if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "cublas")) else
-               "other")
-        groups[key] += ms
-    busy = sum(groups.values())
+    unplaced = dict(by_name)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
+            phase = _phase_of(e)
+            for k in e.kernels:
+                groups[phase or _kernel_class(k.name)] += k.duration / 1e3
+                unplaced[k.name] = unplaced.get(k.name, 0.0) - k.duration / 1e3
+    for name, ms in unplaced.items():
+        if ms > 1e-6:
+            groups[_kernel_class(name)] += ms
+    busy = sum(by_name.values())
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
-           "idle_share": (1 - busy / wall_ms) if busy else None, **{f"{k}_ms": v for k, v in groups.items()}}
+           "idle_share": (1 - busy / wall_ms) if busy else None,
+           **{f"{k}_ms": v for k, v in groups.items()}}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     idle = "not measured" if out["idle_share"] is None else f"{out['idle_share']:.4f}"
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
-        f"{idle}; flash {groups['flash_attention']:.3f} ms, matmul {groups['matmul']:.3f} ms, "
-        f"other {groups['other']:.3f} ms; top kernels "
-        + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in top))
+        f"{idle}; " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items())
+        + "; top kernels " + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in top))
     return out
 
 
@@ -914,6 +989,179 @@ def phase_serve(dev, cfg, wrappers) -> dict:
         out["sets"][label]["cohorts"] = check_cohorts(cfg, params, label, res, out["profile"])
     del params, results
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------- train
+def train_grads(cfg, params, batch, remat):
+    """(loss, {leaf name: gradient}) of ``loss_fn`` at ``params``."""
+    from repro_torch.models import loss_fn
+    from repro_torch.training.tree import flatten_with_paths, tree_unflatten
+    names, leaves_ = zip(*[(n, p.detach().requires_grad_())
+                           for n, p in flatten_with_paths(params)])
+    loss = loss_fn(cfg, tree_unflatten(params, list(leaves_)), batch, remat=remat)
+    grads = torch.autograd.grad(loss, leaves_)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def check_train_grads(cfg, params, batch, wrappers) -> dict:
+    """One loss and gradient through the kernel against the same through
+    the plain attention (swapped in here and restored), ``remat="full"``:
+    loss within TRAIN_LOSS_REL relative, each gradient leaf within
+    SERVE_REL x max |plain leaf|. Raises on a miss."""
+    from repro_torch.kernels.attention import flash_gqa_ref
+    from repro_torch.models import transformer
+    launches = wrappers["flash_attention"].launches
+    loss, grads = train_grads(cfg, params, batch, "full")
+    torch.cuda.synchronize()
+    launched = wrappers["flash_attention"].launches - launches
+    if launched != 2 * cfg.num_layers:
+        raise AssertionError(f"train check: {launched} flash launches, expected "
+                             f"{2 * cfg.num_layers} (forward and recompute)")
+    kernel_fn = transformer.flash_gqa
+    transformer.flash_gqa = flash_gqa_ref
+    try:
+        want_loss, want = train_grads(cfg, params, batch, "full")
+    finally:
+        transformer.flash_gqa = kernel_fn
+    loss_err = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    errs = {}
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        if not scale > 0 or not torch.isfinite(grads[name]).all():
+            raise AssertionError(f"train check: degenerate gradient of {name} (max {scale})")
+        errs[name] = float((grads[name] - w).abs().max()) / scale
+    worst = max(errs, key=errs.get)
+    if not loss_err <= TRAIN_LOSS_REL or errs[worst] > SERVE_REL:
+        raise AssertionError(f"train check: kernel vs plain loss rel err {loss_err:.3e} (limit "
+                             f"{TRAIN_LOSS_REL}), worst gradient {worst} {errs[worst]:.3e} "
+                             f"(limit {SERVE_REL})")
+    return {"loss": float(loss), "plain_loss": float(want_loss), "loss_rel_err": loss_err,
+            "grad_rel_err": errs, "worst_grad": worst, "flash_launches": launched}
+
+
+def train_shape(dev, cfg, state, label, batch_seqs, seq_len, remat, wrappers, card) -> dict:
+    """The launcher's pipeline at one shape: replicated ThallusServers over
+    the launcher's token table, ``ThallusLoader(transport="thallus")``, each
+    batch to the card, ``make_train_step``. One warm-up step, TRAIN_STEPS
+    timed steps (the flash launches counted over these alone), then one
+    profiled step; the loss must be finite and fall over the timed steps."""
+    from repro_torch.launch.train import batch_to_device, make_loader
+    from repro_torch.training import OptimizerConfig, TrainConfig, make_train_step
+    loader = make_loader(cfg, num_seqs=4096, seq_len=seq_len, batch_seqs=batch_seqs,
+                         replicas=2, transport="thallus")
+    step_fn = make_train_step(cfg, TrainConfig(optimizer=OptimizerConfig(**TRAIN_OPT),
+                                               remat=remat))
+    batches = iter(loader)
+    rows = []
+
+    def one_step():
+        torch.cuda.synchronize()
+        transport = loader.stats.transport_s
+        t = time.perf_counter()
+        batch = batch_to_device(next(batches), dev)
+        _, metrics = step_fn(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        s = time.perf_counter() - t
+        rows.append(dict(step=int(state["step"]), host_s=s, tokens_per_s=metrics["tokens"] / s,
+                         transport_s=loader.stats.transport_s - transport, **metrics))
+
+    one_step()  # warm-up: cuBLAS handles and workspaces, the loader's first pull
+    for w in wrappers.values():
+        w.launches = 0
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        one_step()
+        r = rows[-1]
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"[train] {label} ({batch_seqs} x {seq_len}, remat {remat}) step {r['step']}: "
+            f"host {r['host_s']:.4f} s, {r['tokens_per_s']:.3f} tok/s, loss {r['loss']:.6f}, "
+            f"grad_norm {r['grad_norm']:.6f}, lr {r['lr']:.3e}, loader transport_s "
+            f"{r['transport_s']:.6f}, max_memory_allocated {r['max_memory_allocated']} B "
+            f"smi={gpu_state()} card={card}")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    per_step = cfg.num_layers * (2 if remat in ("full", "dots") else 1)
+    if launches["flash_attention"] != TRAIN_STEPS * per_step:
+        raise AssertionError(f"{label}: {launches['flash_attention']} flash launches in "
+                             f"{TRAIN_STEPS} steps, expected {TRAIN_STEPS * per_step}")
+    timed = rows[1:]
+    losses = [r["loss"] for r in timed]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} are not finite and falling")
+    prof = profile_device(f"train {label} step {int(state['step']) + 1} "
+                          f"({batch_seqs} x {seq_len}, remat {remat}) card={card}", one_step)
+    out = {"shape": [batch_seqs, seq_len], "remat": remat, "steps": timed,
+           "warm_up": rows[0], "profiled_step": rows[-1], "profile": prof,
+           "flash_launches": launches["flash_attention"],
+           "median_host_s": statistics.median(r["host_s"] for r in timed),
+           "median_tokens_per_s": statistics.median(r["tokens_per_s"] for r in timed)}
+    log(f"[train] {label}: median host step {out['median_host_s']:.4f} s, "
+        f"{out['median_tokens_per_s']:.3f} tok/s, losses {[round(x, 6) for x in losses]} "
+        f"then {rows[-1]['loss']:.6f} (profiled), {launches['flash_attention']} flash launches "
+        f"in the timed steps card={card}")
+    return out
+
+
+def check_resume(card) -> dict:
+    """``python -m repro_torch.launch.train`` on reduced granite on the
+    card: an uninterrupted run, a run killed after a checkpoint, and its
+    resume, each into a temporary ``--ckpt-dir``; the resumed steps' losses
+    equal the uninterrupted run's within 1e-6 relative. The kill falls on a
+    record-batch boundary (4 training batches each): the loader's cursor
+    counts record batches, as the JAX package's does."""
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = train_main(RESUME_ARGS + ["--ckpt-dir", f"{tmp}/whole"])
+        killed = train_main(RESUME_ARGS + ["--ckpt-dir", f"{tmp}/killed", "--kill-at", "4"])
+        resumed = train_main(RESUME_ARGS + ["--ckpt-dir", f"{tmp}/killed"])
+    got = [h["loss"] for h in killed + resumed]
+    want = [h["loss"] for h in whole]
+    steps = [h["step"] for h in killed + resumed]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if steps != list(range(1, 9)) or not rel <= 1e-6 or not want[-1] < want[0] - 1e-3:
+        raise AssertionError(f"resume: steps {steps}, losses {got} against {want} "
+                             f"(max rel err {rel:.3e}, limit 1e-6)")
+    log(f"[train] kill-and-resume (reduced, {' '.join(RESUME_ARGS)}): losses {got} equal the "
+        f"uninterrupted run's within {rel:.3e} relative (limit 1e-6) card={card}")
+    return {"losses": got, "uninterrupted": want, "max_rel_err": rel}
+
+
+def phase_train(dev, cfg, wrappers, card) -> dict:
+    """Train granite-3-2b at full width and depth: the kernel-path check of
+    one loss and gradient, then the launcher's pipeline at its default shape
+    (remat none) and at 4 x 1024 (remat full), then the reduced
+    kill-and-resume through the launcher. Returns the flash launches of the
+    two shapes' timed steps under ``launches``."""
+    from repro_torch.launch.train import batch_to_device, make_loader
+    from repro_torch.training import OptimizerConfig, init_opt_state
+    t0 = time.perf_counter()
+    params = perturbed_params(cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"[train] {cfg.name}: {n_params} float32 parameters made in "
+        f"{time.perf_counter() - t0:.2f} s card={card}")
+    batch = batch_to_device(next(iter(make_loader(cfg, num_seqs=64, seq_len=1024, batch_seqs=4,
+                                                  replicas=1, transport="thallus"))), dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"grad_check": check_train_grads(cfg, params, batch, wrappers)}
+    out["grad_check"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    g = out["grad_check"]
+    log(f"[train] kernel vs plain attention, 4 x 1024, remat full: loss {g['loss']:.6f} against "
+        f"{g['plain_loss']:.6f} (rel err {g['loss_rel_err']:.3e}, limit {TRAIN_LOSS_REL}); worst "
+        f"gradient {g['worst_grad']} rel err {g['grad_rel_err'][g['worst_grad']]:.3e} (limit "
+        f"{SERVE_REL} x max |plain|); max_memory_allocated {g['max_memory_allocated']} B "
+        f"smi={gpu_state()} card={card}")
+    del batch
+    state = {"params": params, "opt": init_opt_state(OptimizerConfig(**TRAIN_OPT), params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    out["shapes"] = {label: train_shape(dev, cfg, state, label, *shape, wrappers, card)
+                     for label, shape in TRAIN_SHAPES.items()}
+    out["launches"] = {label: r["flash_launches"] for label, r in out["shapes"].items()}
+    del state, params
+    torch.cuda.empty_cache()
+    out["resume"] = check_resume(card)
     return out
 
 
@@ -1049,10 +1297,13 @@ def main(argv=None) -> int:
     cfg = get_config(ARCH)
     serve_out = phase_serve(dev, cfg, wrappers)
     expected = sum(len(c["cohorts"]) for c in serve_out["sets"].values()) * cfg.num_layers
-    launches["flash_attention"] = serve_out["launches"]["flash_attention"]
-    if launches["flash_attention"] != expected:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
+    flash_paths = {"serve": serve_out["launches"]["flash_attention"]}
+    if flash_paths["serve"] != expected:
+        raise AssertionError(f"flash_attention launched {flash_paths['serve']} times "
                              f"on the served path, expected {expected}")
+    train_out = phase_train(dev, cfg, wrappers, setup["smi"])
+    flash_paths.update({f"train_{k}": n for k, n in train_out["launches"].items()})
+    launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
     for name, (source, replaces) in KERNELS.items():
@@ -1064,7 +1315,10 @@ def main(argv=None) -> int:
             row.update({k: t[k] for k in ("host_ms", "floor_ms", "yardstick_ms", "yardstick")
                         if k in t})
         else:
-            row.update(max_abs_err=att_err["float32"], bf16_max_abs_err=att_err["bfloat16"],
+            row.update(launches_by_path=flash_paths, train_default_shape={
+                           k: t["train_default"][k] for k in ("shape", "ms", "plain_ms",
+                                                              "library_ms", "bound_ms")},
+                       max_abs_err=att_err["float32"], bf16_max_abs_err=att_err["bfloat16"],
                        grad_wired=True, grad_backward="attention_ref recompute",
                        tolerance={"atol": ATT_ATOL, "rtol": ATT_RTOL,
                                   "bf16_rtol": ATT_RTOL + BF16_ULP},
@@ -1082,7 +1336,7 @@ def main(argv=None) -> int:
                                                        "library_ms", "bound_ms")})
         report.append(row)
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
-        f"phases={json.dumps({'slice': slice_out, 'serve': serve_out})}")
+        f"phases={json.dumps({'slice': slice_out, 'serve': serve_out, 'train': train_out})}")
     print(json.dumps({"kernels": report}))
     print(setup["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

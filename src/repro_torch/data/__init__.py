@@ -1,5 +1,11 @@
-"""Columnar token datasets (a copy of the JAX package's ``data.tokens``).
+"""Columnar token datasets and the training input pipeline: copies of the
+JAX package's ``data.tokens`` and ``data.loader``.
 
-``data/loader.py`` (``ThallusLoader``) is not ported yet: ROADMAP item 6.
+``ThallusLoader`` streams (tokens, labels) numpy batches over the
+``thallus``, ``rpc`` and ``cluster`` transports. Its ``obs`` and ``qos``
+imports are made lazily, inside ``metrics()``, ``health()`` and the
+``transport="gateway"`` path; the port has no ``obs`` or ``qos`` yet
+(ROADMAP item 7), so those three raise ``ImportError`` here.
 """
 from .tokens import TOKEN_SCHEMA, batch_to_tokens, make_token_table, shift_labels  # noqa: F401
+from .loader import LoaderStats, ThallusLoader  # noqa: F401

@@ -1,3 +1,4 @@
 """Models, dense family, in PyTorch: the port of :mod:`repro.models`."""
-from .model import decode, init_cache, init_params, prefill  # noqa: F401
+from .model import (decode, forward, init_cache, init_params, loss_fn,  # noqa: F401
+                    param_shapes, prefill)
 from .convert import params_from_numpy, params_to_numpy  # noqa: F401

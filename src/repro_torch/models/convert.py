@@ -1,9 +1,12 @@
-"""Parameter trees between the two packages, through numpy.
+"""Parameter trees and train states between the two packages, through
+numpy.
 
-The JAX package's tree (``repro.models.init_params``), with every leaf made
-a numpy array (``jax.tree.map(np.asarray, params)``), becomes the port's
-tree by :func:`params_from_numpy`: the same keys and shapes, each leaf a
-tensor on ``device``. :func:`params_to_numpy` goes back.
+The JAX package's tree (``repro.models.init_params``, or a whole train
+state from ``repro.training.init_train_state``: ``params``, ``opt.m``,
+``opt.v``, ``opt.master`` and the 0-d int32 ``step``), with every leaf made
+a numpy array (``jax.tree.map(np.asarray, tree)``), becomes the port's
+tree by :func:`params_from_numpy`: the same keys, shapes and dtypes, each
+leaf a tensor on ``device``. :func:`params_to_numpy` goes back.
 """
 from __future__ import annotations
 

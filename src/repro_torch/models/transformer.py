@@ -3,20 +3,24 @@
 
 Parameters are the JAX package's tree, as a dict of tensors with the layers
 stacked along a leading ``L`` axis; ``lax.scan`` over that axis becomes a
-Python loop that indexes the same stacked tensors. Prefill attention runs
-the flash kernel (:func:`flash_gqa`) where the JAX package runs
-``chunked_attention``. The other matrix products are ``torch.einsum``, as
-the JAX package leaves them to XLA; the entry points keep
-``torch.backends.cuda.matmul.allow_tf32`` False so that they run in full
-float32. Sharding constraints are dropped: the port runs on one card (mesh
-and sharding rules are ROADMAP item 9).
+Python loop over per-layer views of the same stacked tensors. Prefill
+attention runs the flash kernel (:func:`flash_gqa`) where the JAX package
+runs ``chunked_attention``. ``remat`` maps the JAX package's policies to
+``torch.utils.checkpoint`` around each decoder layer. The other matrix
+products are ``torch.einsum``, as the JAX package leaves them to XLA; the
+entry points keep ``torch.backends.cuda.matmul.allow_tf32`` False so that
+they run in full float32. Sharding constraints are dropped: the port runs
+on one card (mesh and sharding rules are ROADMAP item 9).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import resolve
@@ -33,10 +37,11 @@ MOE_TODO = "MoE layers are not ported yet (ROADMAP item 8, models/moe.py)"
 # ---------------------------------------------------------------------------
 
 
-def init_transformer_params(cfg: ArchConfig, generator: torch.Generator,
+def init_transformer_params(cfg: ArchConfig, generator: torch.Generator | None,
                             dtype=torch.float32, device=None) -> Params:
     """The JAX package's tree, shapes and scales, drawn from ``generator``
-    (which must live on ``device``): normal weights, zero norm weights."""
+    (which must live on ``device``; ``None`` on the meta device): normal
+    weights, zero norm weights."""
     if cfg.moe is not None:
         raise NotImplementedError(MOE_TODO)
     device = resolve(device)
@@ -87,6 +92,17 @@ def layer_params(layers: Params, li: int) -> Params:
             for k, v in layers.items()}
 
 
+def unbind_layers(layers: Params) -> list[Params]:
+    """Every layer's tree, from one ``torch.unbind`` per stacked leaf (views,
+    no copy). Under autograd the backward of each leaf's unbind is one
+    ``stack``; indexing the leaf once per layer (:func:`layer_params`) would
+    instead add a zero-filled leaf-sized gradient into it for every layer."""
+    per_key = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+               for k, v in layers.items()}
+    depth = len(next(iter(per_key.values())))
+    return [{k: v[li] for k, v in per_key.items()} for li in range(depth)]
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -133,13 +149,40 @@ def _decoder_layer(cfg: ArchConfig, layer_p: Params, x: torch.Tensor,
     return x + _ffn_block(cfg, layer_p, h), kv
 
 
+def _save_dots(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """``remat="dots"``: keep the outputs of matrix products without batch
+    dimensions (``checkpoint_dots_with_no_batch_dims``); ``torch.einsum``
+    runs those as ``bmm`` with a batch of 1."""
+    if func is torch.ops.aten.mm.default or (
+            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT = ("none", "full", "dots")
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` itself (``none``), or ``fn`` recomputed in the backward: all of
+    it (``full``), or all but its saved products (``dots``)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat {remat!r}, want one of {REMAT}")
+
+
 # ---------------------------------------------------------------------------
 # embed / logits
 # ---------------------------------------------------------------------------
 
 
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+    x = torch.nn.functional.embedding(tokens.long(), params["embed"])
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -164,27 +207,29 @@ def logits_fn(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill) and decode
+# forward (train / prefill) and decode
 # ---------------------------------------------------------------------------
 
 
 def transformer_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
-                        collect_cache: bool = False):
+                        remat: str = "full", collect_cache: bool = False):
     """Full-sequence forward. Returns logits, and the per-layer (k, v) cache
     stacked (L, B, S, KV, hd) when ``collect_cache`` (prefill).
 
-    Every row's positions are ``arange(S)``, as in the JAX package: a
-    left-padded row attends to its pad tokens, which are not masked."""
+    ``remat`` (``none | full | dots``) decides what the backward recomputes
+    of each decoder layer; the values are the same in all three. Every row's
+    positions are ``arange(S)``, as in the JAX package: a left-padded row
+    attends to its pad tokens, which are not masked."""
     x = embed_tokens(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    layers = params["layers"]
+    layer = _maybe_remat(functools.partial(_decoder_layer, cfg), remat)
     cache = None
     if collect_cache:
         shape = (cfg.num_layers, B, S, cfg.eff_kv, cfg.resolved_head_dim)
         cache = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
-    for li in range(cfg.num_layers):
-        x, (k, v) = _decoder_layer(cfg, layer_params(layers, li), x, positions)
+    for li, layer_p in enumerate(unbind_layers(params["layers"])):
+        x, (k, v) = layer(layer_p, x, positions)
         if collect_cache:
             cache["k"][li] = k
             cache["v"][li] = v

@@ -1,13 +1,14 @@
 """Copy-drift guard: the port's copies of the numpy-only ``core``,
-``engine`` and ``configs`` modules and of ``data/tokens.py`` stay the JAX
-package's modules.
+``engine``, ``cluster`` and ``configs`` modules and of ``data/tokens.py``
+and ``data/loader.py`` stay the JAX package's modules.
 
 Each copy differs from its original only in its first line (which names the
 original) and its import statements. The behaviour checks run both packages on the
 same seeded tables: ``serialize.pack`` bytes (padding aside), and ``ThallusClient`` /
 ``RpcClient`` scans, including a ``WHERE`` query and the mixed table with
 nulls and utf8; every architecture config, full and reduced, and the token
-tables. Any change to one copy without the other fails here.
+tables (``tests/test_torch_loader.py`` runs both loaders, and with them
+the cluster copies). Any change to one copy without the other fails here.
 """
 import ast
 import json
@@ -35,7 +36,9 @@ COPIES = [f"core/{m}.py" for m in ("__init__", "schema", "recordbatch", "bulk", 
                                       "deepseek_coder_33b", "gemma_2b", "granite_3_2b",
                                       "internvl2_76b", "llama4_scout_17b_16e", "mamba2_780m",
                                       "olmoe_1b_7b", "whisper_small", "zamba2_1_2b")] + \
-         ["data/tokens.py"]
+         [f"cluster/{m}.py" for m in ("__init__", "coordinator", "membership", "mempool",
+                                      "nemesis", "plan", "repair", "streams")] + \
+         ["data/tokens.py", "data/loader.py"]
 
 
 class _DropImports(ast.NodeTransformer):

@@ -348,3 +348,115 @@ def test_reduced_granite_prefill_through_the_kernel(cuda):
     torch.testing.assert_close(logits, want_logits, **ATT_TOL)
     for name in ("k", "v"):
         torch.testing.assert_close(cache[name], want_cache[name], **ATT_TOL)
+
+
+
+def _reduced_train_state(device):
+    """Reduced granite (GQA 4:2, head dim 16) with the norm weights of the
+    parameters and of their master copy set to 1 + 0.1 N(0, 1); drawn on the
+    CPU from seeds and copied to ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import OptimizerConfig, TrainConfig, init_train_state
+
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), num_kv_heads=2)
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=1, decay_steps=10)
+    state = init_train_state(cfg, TrainConfig(optimizer=opt), torch.Generator().manual_seed(0),
+                             "cpu")
+    g = torch.Generator().manual_seed(1)
+    params = state["params"]
+    for node, key in ((params["layers"], "ln1"), (params["layers"], "ln2"), (params, "final_norm")):
+        node[key] = 1 + 0.1 * torch.randn(node[key].shape, generator=g)
+    state["opt"]["master"] = _map(lambda t: t.clone(), params)
+    return cfg, opt, _map(lambda t: t.to(device), state)
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _token_batch(cfg, shape, seed, device):
+    from repro_torch.data import shift_labels
+
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(shift_labels(toks)).to(device)}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def test_reduced_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three train steps of reduced granite with ``remat="full"`` on the
+    card (the flash kernel's forward, twice per layer per step) against the
+    same steps on the CPU (the plain attention): loss within 1e-4 relative,
+    ``m`` and ``v`` within 1e-3 of each leaf's largest value, parameters
+    within the summed learning rates (Adam's sign where a gradient is ~0)."""
+    from repro_torch.training import TrainConfig, make_train_step
+
+    results = {}
+    for device in (torch.device("cpu"), cuda):
+        cfg, opt, state = _reduced_train_state(device)
+        step = make_train_step(cfg, TrainConfig(optimizer=opt, remat="full"))
+        launches = tattn.flash_attention.launches
+        metrics = []
+        for i in range(3):
+            state, m = step(state, _token_batch(cfg, (4, 64), seed=i, device=device))
+            metrics.append({k: float(v) for k, v in m.items()})
+        n = tattn.flash_attention.launches - launches
+        assert n == (2 * 3 * cfg.num_layers if device.type == "cuda" else 0)
+        results[device.type] = (_map(lambda t: t.cpu(), state), metrics)
+    (got, gm), (want, wm) = results["cuda"], results["cpu"]
+    lrs = sum(m["lr"] for m in wm)
+    assert lrs > 0 and int(got["step"]) == 3
+    for g, w in zip(gm, wm):
+        assert g["loss"] == pytest.approx(w["loss"], rel=1e-4) and np.isfinite(g["loss"])
+        assert g["grad_norm"] == pytest.approx(w["grad_norm"], rel=1e-3)
+    for key in ("m", "v"):
+        for (name, g), (_, w) in zip(_leaves(got["opt"][key]), _leaves(want["opt"][key])):
+            assert float(w.abs().max()) > 0, name
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * float(w.abs().max()), msg=name)
+    for (name, g), (_, w) in zip(_leaves(got["params"]), _leaves(want["params"])):
+        torch.testing.assert_close(g, w, rtol=0, atol=lrs, msg=name)
+
+
+def test_remat_full_on_the_card_keeps_the_loss_and_lowers_the_peak(cuda):
+    """One loss and gradient of reduced granite on the card with ``remat``
+    none and full: the same loss and gradients (the recompute repeats the
+    forward's kernels; the embedding's index backward may sum in another
+    order), and a lower peak of device memory with ``full``."""
+    from repro_torch.models import loss_fn
+
+    cfg, _, state = _reduced_train_state(cuda)
+    batch = _token_batch(cfg, (16, 512), seed=7, device=cuda)
+    out = {}
+    for remat in ("none", "full", "none"):
+        leaves = {n: t.detach().clone().requires_grad_() for n, t in _leaves(state["params"])}
+        tree = {}
+        for name, leaf in leaves.items():
+            node = tree
+            *keys, last = name.split("/")
+            for k in keys:
+                node = node.setdefault(k, {})
+            node[last] = leaf
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = loss_fn(cfg, tree, batch, remat=remat)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (float(loss.detach()), {n: t.grad for n, t in leaves.items()},
+                      torch.cuda.max_memory_allocated() - base)
+    (loss_none, grads_none, peak_none), (loss_full, grads_full, peak_full) = \
+        out["none"], out["full"]
+    assert loss_full == pytest.approx(loss_none, rel=1e-6)
+    for name, w in grads_none.items():
+        torch.testing.assert_close(grads_full[name], w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()), msg=name)
+    assert peak_full < peak_none, (peak_full, peak_none)
