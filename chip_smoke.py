@@ -130,6 +130,12 @@ TRAIN_SHAPES = {"c_default": (8, 128, "none"), "d_long": (4, 1024, "full")}
 TRAIN_STEPS = 3
 RESUME_ARGS = ["--arch", ARCH, "--reduced", "--steps", "8", "--ckpt-every", "4",
                "--log-every", "1", "--lr", "1e-2"]
+# Phase 6 (the qos gateway): the prompt table two serving replicas fetch
+# through one gateway scan (sequences x tokens), their cohort size and the
+# tokens each request decodes.
+GATEWAY_PROMPTS = (8, 128)
+GATEWAY_BATCH = 4
+GATEWAY_NEW_TOKENS = 8
 
 
 def log(*parts) -> None:
@@ -808,18 +814,22 @@ def perturbed_params(cfg, dev):
     return params
 
 
-KERNEL_CLASSES = ("flash_attention", "matmul", "attention_backward", "optimizer", "other")
+KERNEL_CLASSES = ("flash_attention", "matmul", "attention_backward", "optimizer",
+                  "compression", "other")
 
 
 def _phase_of(event) -> str | None:
     """The train step's phase that launched a profiled op: the flash
-    kernel's backward (autograd's node of the plain recompute) or the
-    optimizer (``adamw_update``'s profiler range); None elsewhere."""
+    kernel's backward (autograd's node of the plain recompute), the
+    optimizer (``adamw_update``'s profiler range) or the gradient compression
+    (``compress_decompress``'s); None elsewhere."""
     while event is not None:
         if "_FlashAttentionBackward" in event.name:
             return "attention_backward"
         if event.name == "adamw_update":
             return "optimizer"
+        if event.name == "compress_decompress":
+            return "compression"
         event = event.cpu_parent
     return None
 
@@ -838,7 +848,8 @@ def profile_device(label: str, fn) -> dict:
     window: the flash kernel's forward, matrix products (cuBLAS/CUTLASS
     kernels), the attention backward (every kernel of the flash kernel's
     plain-recompute backward), the optimizer (every kernel under
-    ``adamw_update``) and the rest, against the window's host-clock time
+    ``adamw_update``), the gradient compression (every kernel under
+    ``compress_decompress``) and the rest, against the window's host-clock time
     (ending in a synchronize). Kernels of one stream do not overlap, so
     their sum is the device's busy time. A kernel is put in a phase by the
     op that launched it; one no op launched, by its name alone."""
@@ -854,7 +865,7 @@ def profile_device(label: str, fn) -> dict:
     groups = dict.fromkeys(KERNEL_CLASSES, 0.0)
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation \
-                and e.name != "adamw_update":
+                and e.name not in ("adamw_update", "compress_decompress"):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     unplaced = dict(by_name)
     for e in events:
@@ -1165,6 +1176,256 @@ def phase_train(dev, cfg, wrappers, card) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- gateway
+def gateway_for(table, dataset: str):
+    """Two replicated ``ThallusServer``s holding ``table`` behind one
+    ``ScanGateway`` with an admission controller and an adaptive scheduler
+    whose ticket table coalesces identical scans; the gateway's clock is the
+    fabric's modeled one."""
+    from repro_torch.cluster import ClusterCoordinator
+    from repro_torch.core import Fabric, ThallusServer
+    from repro_torch.engine import Engine
+    from repro_torch.qos import AdmissionController, ScanGateway
+    from repro_torch.sched import AdaptiveScheduler, TicketTable
+    coord = ClusterCoordinator()
+    for i in range(2):
+        eng = Engine()
+        eng.register(dataset, table)
+        coord.add_server(f"s{i}", ThallusServer(eng, Fabric()))
+    coord.place_replicas(dataset, table)
+    return ScanGateway(coord, admission=AdmissionController(),
+                       scheduler=AdaptiveScheduler(tickets=TicketTable()), modeled_service=True)
+
+
+def qos_counters(snapshot: dict) -> dict:
+    return {k: v for k, v in sorted(snapshot.items()) if k.startswith(("qos.", "sched."))
+            and not k.startswith("qos.class.")}
+
+
+def gateway_serve(dev, cfg, wrappers, card) -> dict:
+    """(e) Two ``Batcher``s (replicas of one service) fetch their prompts,
+    GATEWAY_PROMPTS sequences from a token table on two replicated servers,
+    with ``submit_scan``/``ingest_scan`` through one gateway: one fetch runs,
+    the other rides its ticket. Both serve them on the card (the flash
+    launches counted over these two runs alone); their completions must
+    equal, token for token, those of a ``Batcher`` given the same rows by
+    ``submit``."""
+    from repro_torch.data import batch_to_tokens, make_token_table
+    from repro_torch.launch.serve import timed_model
+    from repro_torch.models import decode, prefill
+    from repro_torch.serving import Batcher, Request
+    n_seqs, seq_len = GATEWAY_PROMPTS
+    table = make_token_table("prompts", n_seqs, seq_len, cfg.vocab_size, seqs_per_batch=4,
+                             seed=0)
+    gateway = gateway_for(table, "/prompts")
+    params = perturbed_params(cfg, dev)
+    prefill_fn, decode_fn, prefill_s, decode_s = timed_model(cfg, params, dev)
+    replicas = [Batcher(prefill_fn, decode_fn, batch_size=GATEWAY_BATCH, device=dev)
+                for _ in range(2)]
+    requests = [b.submit_scan(gateway, "SELECT seq_id, tokens FROM prompts", "/prompts")
+                for b in replicas]
+    gateway.run()
+    fetched = [b.ingest_scan(gateway, r, seq_len, max_new_tokens=GATEWAY_NEW_TOKENS)
+               for b, r in zip(replicas, requests)]
+    if sorted(s for _, s in fetched) != [False, True] or [n for n, _ in fetched] != [n_seqs] * 2 \
+            or gateway.stats.ticket_hits != 1:
+        raise AssertionError(f"gateway serve: fetches {fetched}, ticket hits "
+                             f"{gateway.stats.ticket_hits}; expected one shared fetch of "
+                             f"{n_seqs} prompts each")
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    done = [b.run() for b in replicas]
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    cohorts = sum(len(b.cohort_tokens) for b in replicas)
+    if launches["flash_attention"] != cohorts * cfg.num_layers:
+        raise AssertionError(f"gateway serve: {launches['flash_attention']} flash launches for "
+                             f"{cohorts} cohorts of {cfg.num_layers} layers")
+    direct = Batcher(lambda t: prefill(cfg, params, {"tokens": t}),
+                     lambda c, t, p: decode(cfg, params, c, t, p),
+                     batch_size=GATEWAY_BATCH, device=dev)
+    rid = 0
+    for rb in table.batches:
+        for seq in batch_to_tokens(rb, seq_len):
+            direct.submit(Request(rid, np.asarray(seq, np.int32).copy(),
+                                  max_new_tokens=GATEWAY_NEW_TOKENS))
+            rid += 1
+    want = [(c.request_id, c.tokens) for c in direct.run()]
+    for i, d in enumerate(done):
+        if [(c.request_id, c.tokens) for c in d] != want:
+            raise AssertionError(f"gateway serve: replica {i}'s completions differ from the "
+                                 f"directly submitted rows': {d[:2]} against {want[:2]}")
+    tokens = [t for _, toks in want for t in toks]
+    if len(set(tokens)) < 2:
+        raise AssertionError(f"gateway serve: every served token is {tokens[:1]}")
+    n_tokens = sum(len(c.tokens) for d in done for c in d)
+    grant_us = {name: [x * 1e6 for x in c.grant_latency_s]
+                for name, c in sorted(gateway.stats.classes.items())}
+    out = {"prompts": list(GATEWAY_PROMPTS), "batch": GATEWAY_BATCH,
+           "new_tokens": GATEWAY_NEW_TOKENS, "fetches": fetched,
+           "ticket_hits": gateway.stats.ticket_hits, "tokens": n_tokens, "seconds": seconds,
+           "tokens_per_s": n_tokens / seconds, "prefill_ms": [x * 1e3 for x in prefill_s],
+           "decode_ms": [x * 1e3 for x in decode_s], "modeled_grant_us": grant_us,
+           "flash_launches": launches["flash_attention"]}
+    log(f"[gateway] (e) serve: 2 replicas fetched {n_seqs} x {seq_len} prompts through one "
+        f"gateway scan ({fetched}, ticket_hits {out['ticket_hits']}); {n_tokens} tokens in "
+        f"{seconds:.4f} s ({out['tokens_per_s']:.3f} tok/s); prefill ms per cohort "
+        f"{[round(x, 3) for x in out['prefill_ms']]}; decode ms per step median "
+        f"{statistics.median(out['decode_ms']):.3f} ({len(decode_s)} steps); modeled grant "
+        f"latency us per class {grant_us}; flash launches {launches['flash_attention']}; "
+        f"completions equal a direct submit's token for token smi={gpu_state()} card={card}")
+    del params, replicas, direct
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_compression_leaf(dev, params, card) -> dict:
+    """``compress_decompress`` of one full-size stacked leaf's shape (a
+    seeded gradient of unit-normal x 1e-3 and error feedback x 1e-5) on the
+    card against the same on the CPU, bit for bit; then the card's in-place
+    pass is timed by ``Timer`` (its work does not depend on the values, so
+    each call may take the last one's output)."""
+    from repro_torch.training.compression import compress_decompress, compress_decompress_
+    name, leaf = max((("layers/mlp/" + k, v) for k, v in params["layers"]["mlp"].items()),
+                     key=lambda nt: nt[1].numel())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn(leaf.shape, generator=gen, device=dev).mul_(1e-3)
+    ef = torch.randn(leaf.shape, generator=gen, device=dev).mul_(1e-5)
+    want_deq, want_ef = compress_decompress(g.cpu(), ef.cpu())
+    deq = compress_decompress_(g, ef)
+    same_bits(f"compress_decompress {name} deq, card vs CPU", deq.cpu(), want_deq)
+    same_bits(f"compress_decompress {name} ef, card vs CPU", ef.cpu(), want_ef)
+    del want_deq, want_ef
+    timer = Timer(dev, reps=5)
+    ms = timer.ms(lambda: compress_decompress_(g, ef))
+    # read g and ef once, write deq and the new ef once: four float32 leaves
+    out = {"leaf": name, "shape": list(leaf.shape), "ms": ms, "bit_equal": True,
+           "bound_ms": bound_ms(16 * leaf.numel())}
+    log(f"[gateway] compress_decompress of {name} {tuple(leaf.shape)} on the card equals the "
+        f"CPU's bit for bit (deq and ef); {ms:.3f} ms on the card (one leaf, in place; byte "
+        f"bound {out['bound_ms']:.3f} ms; median of 5) smi={timer.smi} card={card}")
+    del g, ef, deq, timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def gateway_train(dev, cfg, wrappers, card, plain: dict) -> dict:
+    """(f) The launcher's default shape (8 x 128, remat none) trained with
+    ``compress_dp_grads=True`` from ``ThallusLoader(transport="gateway")``
+    over the launcher's token table on two replicated servers behind a
+    gateway. Its batches must equal a solo ``thallus`` loader's, bit for
+    bit; one warm-up step, TRAIN_STEPS timed steps, one profiled step (the
+    compression pass in its own range). ``plain`` is phase 5's run at this
+    shape: the same seeded weights and the same batches, uncompressed. The
+    warm-up step's loss is taken before any update, so it must equal
+    ``plain``'s; the losses must be finite, and the last timed one below
+    it. Each step sees new sequences, and after the first update the loss
+    varies from batch to batch by more than the next three steps lower it,
+    with compression and without; so the fall is read against the loss at
+    the seeded weights."""
+    from repro_torch.data import ThallusLoader, make_token_table
+    from repro_torch.launch.train import batch_to_device, make_loader
+    from repro_torch.training import (OptimizerConfig, TrainConfig, init_error_feedback,
+                                      init_opt_state, make_train_step)
+    batch_seqs, seq_len, remat = TRAIN_SHAPES["c_default"]
+    table = make_token_table("tokens", 4096, seq_len, cfg.vocab_size,
+                             seqs_per_batch=max(batch_seqs * 4, 32))
+    gateway = gateway_for(table, "/data/tokens")
+    loader = ThallusLoader([], "SELECT tokens FROM tokens", "/data/tokens", seq_len=seq_len,
+                           batch_seqs=batch_seqs, transport="gateway", gateway=gateway,
+                           client_id="trainer")
+    solo = iter(make_loader(cfg, num_seqs=4096, seq_len=seq_len, batch_seqs=batch_seqs,
+                            replicas=2, transport="thallus"))
+    params = perturbed_params(cfg, dev)
+    out = {"compress_leaf": check_compression_leaf(dev, params, card)}
+    tcfg = TrainConfig(optimizer=OptimizerConfig(**TRAIN_OPT), remat=remat,
+                       compress_dp_grads=True)
+    state = {"params": params, "opt": init_opt_state(tcfg.optimizer, params),
+             "ef": init_error_feedback(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    step_fn = make_train_step(cfg, tcfg)
+    batches = iter(loader)
+    rows = []
+
+    def one_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host = next(batches)
+        want = next(solo)
+        for k in ("tokens", "labels"):
+            if not np.array_equal(host[k], want[k]) or host[k].dtype != want[k].dtype:
+                raise AssertionError(f"gateway loader batch {len(rows)} {k} differs from a "
+                                     f"solo thallus loader's")
+        _, metrics = step_fn(state, batch_to_device(host, dev))
+        metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        s = time.perf_counter() - t
+        rows.append(dict(step=int(state["step"]), host_s=s, tokens_per_s=metrics["tokens"] / s,
+                         **metrics))
+
+    one_step()
+    for w in wrappers.values():
+        w.launches = 0
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        one_step()
+        r = rows[-1]
+        r["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"[gateway] (f) train {batch_seqs} x {seq_len} remat {remat} compress_dp_grads step "
+            f"{r['step']}: host {r['host_s']:.4f} s, {r['tokens_per_s']:.3f} tok/s, loss "
+            f"{r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, max_memory_allocated "
+            f"{r['max_memory_allocated']} B smi={gpu_state()} card={card}")
+    launches = wrappers["flash_attention"].launches
+    if launches != TRAIN_STEPS * cfg.num_layers:
+        raise AssertionError(f"gateway train: {launches} flash launches in {TRAIN_STEPS} steps")
+    timed = rows[1:]
+    losses = [r["loss"] for r in rows]
+    init_loss, plain_init = rows[0]["loss"], plain["warm_up"]["loss"]
+    if not abs(init_loss - plain_init) <= 1e-6 * abs(plain_init):
+        raise AssertionError(f"gateway train: loss at the seeded weights {init_loss} != phase "
+                             f"5's {plain_init} on the same batch")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gateway train: losses {losses} are not finite and falling")
+    prof = profile_device(f"gateway train step {int(state['step']) + 1} ({batch_seqs} x "
+                          f"{seq_len}, remat {remat}, compress_dp_grads) card={card}", one_step)
+    ef_max = max(float(e.abs().max()) for e in leaves(state["ef"]))
+    if not 0 < ef_max < float("inf"):
+        raise AssertionError(f"gateway train: error feedback max {ef_max}")
+    counters = qos_counters(loader.metrics().snapshot())
+    out.update(steps=timed, warm_up=rows[0], profiled_step=rows[-1], profile=prof,
+               flash_launches=launches, loader_batches_checked=len(rows),
+               shared_scans=loader.stats.shared_scans, ef_max=ef_max, counters=counters,
+               median_host_s=statistics.median(r["host_s"] for r in timed),
+               median_tokens_per_s=statistics.median(r["tokens_per_s"] for r in timed),
+               peak_memory=max(r["max_memory_allocated"] for r in timed))
+    plain_losses = [plain["warm_up"]["loss"]] + [r["loss"] for r in plain["steps"]] + \
+        [plain["profiled_step"]["loss"]]
+    out["plain_losses"] = plain_losses
+    log(f"[gateway] (f) median host step {out['median_host_s']:.4f} s, "
+        f"{out['median_tokens_per_s']:.3f} tok/s, losses (warm-up, timed, profiled) "
+        f"{[round(r['loss'], 6) for r in rows]} against phase 5's uncompressed "
+        f"{[round(x, 6) for x in plain_losses]} on the same batches; compression {prof['compression_ms']:.3f} ms, "
+        f"optimizer {prof['optimizer_ms']:.3f} ms of device time, idle share "
+        f"{prof['idle_share']}; peak {out['peak_memory']} B; {len(rows)} loader batches equal a "
+        f"solo thallus loader's; max |ef| {ef_max:.3e} card={card}")
+    log(f"[gateway] (f) loader.metrics() qos/sched counters: {json.dumps(counters)}")
+    del state, params, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_gateway(dev, cfg, wrappers, card, plain: dict) -> dict:
+    """Phase 6: serve (e) and train (f) through the qos gateway, one
+    full-width model on the card at a time; ``plain`` is phase 5's run at
+    (f)'s shape. Returns the flash launches of each under ``launches``."""
+    out = {"serve": gateway_serve(dev, cfg, wrappers, card),
+           "train": gateway_train(dev, cfg, wrappers, card, plain)}
+    out["launches"] = {"gateway_serve": out["serve"]["flash_launches"],
+                       "gateway_train": out["train"]["flash_launches"]}
+    return out
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1303,6 +1564,9 @@ def main(argv=None) -> int:
                              f"on the served path, expected {expected}")
     train_out = phase_train(dev, cfg, wrappers, setup["smi"])
     flash_paths.update({f"train_{k}": n for k, n in train_out["launches"].items()})
+    gateway_out = phase_gateway(dev, cfg, wrappers, setup["smi"],
+                                train_out["shapes"]["c_default"])
+    flash_paths.update(gateway_out["launches"])
     launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
@@ -1335,8 +1599,10 @@ def main(argv=None) -> int:
                        one_column={k: one[k] for k in ("ms", "host_ms", "floor_ms", "plain_ms",
                                                        "library_ms", "bound_ms")})
         report.append(row)
+    phases = {"slice": slice_out, "serve": serve_out, "train": train_out,
+              "gateway": gateway_out}
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
-        f"phases={json.dumps({'slice': slice_out, 'serve': serve_out, 'train': train_out})}")
+        f"phases={json.dumps(phases)}")
     print(json.dumps({"kernels": report}))
     print(setup["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,10 +2,9 @@
 JAX package's ``data.tokens`` and ``data.loader``.
 
 ``ThallusLoader`` streams (tokens, labels) numpy batches over the
-``thallus``, ``rpc`` and ``cluster`` transports. Its ``obs`` and ``qos``
-imports are made lazily, inside ``metrics()``, ``health()`` and the
-``transport="gateway"`` path; the port has no ``obs`` or ``qos`` yet
-(ROADMAP item 7), so those three raise ``ImportError`` here.
+``thallus``, ``rpc``, ``cluster`` and ``gateway`` transports; the last one
+submits its scan to a ``qos.ScanGateway``. Its ``obs`` and ``qos`` imports
+are made lazily, inside ``metrics()``, ``health()`` and the gateway path.
 """
 from .tokens import TOKEN_SCHEMA, batch_to_tokens, make_token_table, shift_labels  # noqa: F401
 from .loader import LoaderStats, ThallusLoader  # noqa: F401

@@ -62,11 +62,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(cfg: ArchConfig, params, requests: list[Request], batch_size: int,
-          device=None) -> ServeResult:
-    """Serve ``requests`` with ``params`` on ``device`` and send the
-    completions through ``ThallusTransport(Fabric())``."""
-    device = resolve(device)
+def timed_model(cfg: ArchConfig, params, device: torch.device):
+    """A ``Batcher``'s ``prefill_fn`` and ``decode_fn`` for ``params``, and
+    the lists they append each call's host seconds to (up to a synchronize
+    on the card): ``(prefill_fn, decode_fn, prefill_s, decode_s)``."""
     prefill_s, decode_s = [], []
 
     def prefill_fn(tokens):
@@ -83,6 +82,15 @@ def serve(cfg: ArchConfig, params, requests: list[Request], batch_size: int,
         decode_s.append(time.perf_counter() - t)
         return out
 
+    return prefill_fn, decode_fn, prefill_s, decode_s
+
+
+def serve(cfg: ArchConfig, params, requests: list[Request], batch_size: int,
+          device=None) -> ServeResult:
+    """Serve ``requests`` with ``params`` on ``device`` and send the
+    completions through ``ThallusTransport(Fabric())``."""
+    device = resolve(device)
+    prefill_fn, decode_fn, prefill_s, decode_s = timed_model(cfg, params, device)
     batcher = Batcher(prefill_fn, decode_fn, batch_size=batch_size, device=device)
     for r in requests:
         batcher.submit(r)

@@ -5,9 +5,10 @@ common length, prefilled once, decoded in lockstep (the decode step is
 batch-uniform), retired on EOS or ``max_new_tokens``; responses leave as
 record batches over the Thallus transport.
 
-The qos-gateway ingestion (``submit_scan``, ``ingest_scan``) waits for the
-port of ``repro.qos`` (ROADMAP item 7); :meth:`Batcher.ingest_batches` takes
-the token record batches such a scan returns.
+Prompt ingestion rides the qos gateway, as in the JAX package:
+:meth:`Batcher.submit_scan` turns a prompt-table query into one logical
+:class:`~repro_torch.qos.ScanRequest`, and :meth:`Batcher.ingest_scan` feeds
+the reassembled token batches of its result to :meth:`Batcher.ingest_batches`.
 """
 from __future__ import annotations
 
@@ -78,6 +79,40 @@ class Batcher:
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
+
+    # -- qos-gateway ingestion ---------------------------------------------
+    def submit_scan(self, gateway, sql: str, dataset: str, *,
+                    client_id: str = "serving", klass: str = "interactive",
+                    cost_hint: float = 1.0, deadline_s: float | None = None,
+                    num_streams: int | None = None, start_batch: int = 0,
+                    arrival_s: float = 0.0):
+        """Submit the prompt-fetch scan as one logical gateway request.
+        Returns the id-assigned :class:`~repro_torch.qos.ScanRequest`, or
+        ``None`` when the gateway shed it at submit. Run the gateway, then
+        call :meth:`ingest_scan`. Replicas that submit the same
+        ``(sql, dataset, start_batch)`` under a gateway with a scheduler and
+        a ticket table coalesce onto one shared fan-out."""
+        from ..qos import ScanRequest   # serving -> qos only on this path
+        return gateway.submit(ScanRequest(
+            client_id=client_id, klass=klass, sql=sql, dataset=dataset,
+            cost_hint=cost_hint, deadline_s=deadline_s,
+            num_streams=num_streams, start_batch=start_batch,
+            arrival_s=arrival_s))
+
+    def ingest_scan(self, gateway, request, seq_len: int, *,
+                    max_new_tokens: int = 16, eos_id: int | None = None,
+                    start_id: int = 0) -> tuple[int, bool]:
+        """Enqueue the sequences of a completed :meth:`submit_scan` result.
+        Returns ``(num_requests, shared)``; ``shared`` is True when another
+        subscriber's fan-out did the server-side work. A request that was
+        shed or failed while queued gives ``(0, False)``."""
+        result = gateway.result(request.request_id)
+        if result is None:
+            return 0, False
+        n = self.ingest_batches(result.batches, seq_len,
+                                max_new_tokens=max_new_tokens,
+                                eos_id=eos_id, start_id=start_id)
+        return n, result.shared
 
     def ingest_batches(self, batches, seq_len: int, *,
                        max_new_tokens: int = 16, eos_id: int | None = None,

@@ -1,11 +1,14 @@
 """Train step factory: loss → gradients (accumulated over microbatches) →
-AdamW. The port of :mod:`repro.training.train_step`.
+optional int8 error-feedback compression → AdamW. The port of
+:mod:`repro.training.train_step`.
 
 The train state is the JAX package's tree, ``{"params", "opt": {"m", "v",
-"master"}, "step"}``, with ``step`` a 0-d int32 tensor. The step updates the
-state's tensors in place and returns the same dict (the JAX step returns a
-new tree): at full width the state is 5 x 10.1 GB of float32. Mesh and
-sharding are dropped, as everywhere in the port (ROADMAP item 9).
+"master"}, "ef"?, "step"}``, with ``step`` a 0-d int32 tensor and ``ef``
+(float32, like the params) present when ``compress_dp_grads`` is set. The
+step updates the state's tensors in place and returns the same dict (the JAX
+step returns a new tree): at full width the state is 5 x 10.1 GB of float32,
+6 x with ``ef``. Mesh and sharding are dropped, as everywhere in the port
+(ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -17,13 +20,11 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve
 from ..models import init_params, loss_fn
+from .compression import compress_decompress_, init_error_feedback
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
 from .tree import tree_leaves, tree_map, tree_unflatten
 
 Pytree = Any
-
-COMPRESS_TODO = ("compress_dp_grads: int8 error-feedback compression "
-                 "(training/compression.py) is not ported yet (ROADMAP item 6e)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,21 +36,19 @@ class TrainConfig:
     param_dtype: str = "float32"        # float32 (smoke) / bfloat16 (scale)
 
 
-def _no_compression(tcfg: TrainConfig) -> None:
-    if tcfg.compress_dp_grads:
-        raise NotImplementedError(COMPRESS_TODO)
-
-
 def init_train_state(cfg: ArchConfig, tcfg: TrainConfig,
                      generator: torch.Generator | None, device=None) -> Pytree:
     """Parameters drawn from ``generator`` (on ``device``; ``None`` on the
-    meta device), zero moments, a float32 master copy, step 0."""
-    _no_compression(tcfg)
+    meta device), zero moments, a float32 master copy, step 0, and zero
+    error feedback when ``compress_dp_grads`` is set."""
     device = resolve(device)
     params = init_params(cfg, generator, getattr(torch, tcfg.param_dtype), device)
-    return {"params": params,
-            "opt": init_opt_state(tcfg.optimizer, params),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    state = {"params": params,
+             "opt": init_opt_state(tcfg.optimizer, params),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if tcfg.compress_dp_grads:
+        state["ef"] = init_error_feedback(params)
+    return state
 
 
 def train_state_shapes(cfg: ArchConfig, tcfg: TrainConfig) -> Pytree:
@@ -68,8 +67,10 @@ def _split_microbatches(batch: dict, k: int) -> list[dict]:
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics), with metrics
     ``loss``, ``grad_norm``, ``lr`` and ``tokens`` as 0-d float32 tensors on
-    the state's device (reading one waits for the step)."""
-    _no_compression(tcfg)
+    the state's device (reading one waits for the step). With
+    ``compress_dp_grads`` and an ``ef`` in the state, the gradients pass
+    through the local int8 quantize/error-feedback pass, leaf by leaf and in
+    place, before AdamW; ``state["ef"]`` is updated in place."""
 
     def compute_grads(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -92,6 +93,11 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
             tree_map(lambda a: a.div_(tcfg.microbatches), grads)
         else:
             loss, grads = compute_grads(params, batch)
+        if tcfg.compress_dp_grads and "ef" in state:
+            with torch.profiler.record_function("compress_decompress"):  # names its kernels
+                grads = tree_unflatten(grads, [
+                    compress_decompress_(g, e)
+                    for g, e in zip(tree_leaves(grads), tree_leaves(state["ef"]))])
         _, _, opt_metrics = adamw_update(tcfg.optimizer, grads, state["opt"],
                                          params, state["step"])
         del grads

@@ -1,6 +1,7 @@
 """Copy-drift guard: the port's copies of the numpy-only ``core``,
-``engine``, ``cluster`` and ``configs`` modules and of ``data/tokens.py``
-and ``data/loader.py`` stay the JAX package's modules.
+``engine``, ``cluster``, ``configs``, ``obs``, ``sched`` and ``qos`` modules
+and of ``data/tokens.py`` and ``data/loader.py`` stay the JAX package's
+modules.
 
 Each copy differs from its original only in its first line (which names the
 original) and its import statements. The behaviour checks run both packages on the
@@ -8,7 +9,11 @@ same seeded tables: ``serialize.pack`` bytes (padding aside), and ``ThallusClien
 ``RpcClient`` scans, including a ``WHERE`` query and the mixed table with
 nulls and utf8; every architecture config, full and reduced, and the token
 tables (``tests/test_torch_loader.py`` runs both loaders, and with them
-the cluster copies). Any change to one copy without the other fails here.
+the cluster copies; ``tests/test_torch_qos.py`` runs the gateway, the
+scheduler and the registry of both). The ``obs``, ``sched`` and ``qos``
+copies import only each other and ``cluster``/``core``, relatively, so each
+is its original byte for byte after its first line. Any change to one copy
+without the other fails here.
 """
 import ast
 import json
@@ -38,7 +43,12 @@ COPIES = [f"core/{m}.py" for m in ("__init__", "schema", "recordbatch", "bulk", 
                                       "olmoe_1b_7b", "whisper_small", "zamba2_1_2b")] + \
          [f"cluster/{m}.py" for m in ("__init__", "coordinator", "membership", "mempool",
                                       "nemesis", "plan", "repair", "streams")] + \
-         ["data/tokens.py", "data/loader.py"]
+         ["data/tokens.py", "data/loader.py"] + \
+         [f"obs/{m}.py" for m in ("__init__", "registry", "trace", "recorder", "baseline",
+                                  "events", "health", "slo", "workload")] + \
+         [f"sched/{m}.py" for m in ("__init__", "share", "steal", "preempt", "scheduler")] + \
+         [f"qos/{m}.py" for m in ("__init__", "queue", "metrics", "admission", "distributed",
+                                  "gateway")]
 
 
 class _DropImports(ast.NodeTransformer):
@@ -60,6 +70,13 @@ def test_copy_matches_original_but_for_imports(rel):
     head, _, body = copy.partition("\n")
     assert head == f"# Copy of src/repro/{rel}, kept numpy-only; change both copies together."
     assert _code(body) == _code(original)
+
+
+@pytest.mark.parametrize("rel", [r for r in COPIES if r.split("/")[0] in ("obs", "sched", "qos")])
+def test_copy_differs_only_in_its_first_line(rel):
+    original = (ROOT / "src" / "repro" / rel).read_text()
+    copy = (ROOT / "src" / "repro_torch" / rel).read_text()
+    assert copy.partition("\n")[2] == original
 
 
 def _payload(wire):

@@ -460,3 +460,123 @@ def test_remat_full_on_the_card_keeps_the_loss_and_lowers_the_peak(cuda):
         torch.testing.assert_close(grads_full[name], w, rtol=0,
                                    atol=1e-5 * float(w.abs().max()), msg=name)
     assert peak_full < peak_none, (peak_full, peak_none)
+
+
+# ------------------------------------------------- the qos gateway, compression
+
+def _token_gateway():
+    from repro_torch.cluster import ClusterCoordinator
+    from repro_torch.core import Fabric, ThallusServer
+    from repro_torch.data import make_token_table
+    from repro_torch.engine import Engine
+    from repro_torch.qos import ScanGateway
+    from repro_torch.sched import AdaptiveScheduler, TicketTable
+
+    table = make_token_table("tok", num_seqs=12, seq_len=24, vocab_size=128, seqs_per_batch=4)
+    coord = ClusterCoordinator()
+    for i in range(2):
+        eng = Engine()
+        eng.register("/tok", table)
+        coord.add_server(f"s{i}", ThallusServer(eng, Fabric()))
+    coord.place_replicas("/tok", table)
+    return ScanGateway(coord, scheduler=AdaptiveScheduler(tickets=TicketTable()),
+                       modeled_service=True)
+
+
+def test_reduced_granite_serves_gateway_prompts_on_the_card_as_on_the_cpu(cuda):
+    """Two batchers fetch one prompt table through one gateway scan (one
+    fetch shared) and serve it with reduced granite on the card and on the
+    CPU: the same completions, token for token."""
+    from repro_torch.models import decode, prefill
+    from repro_torch.serving import Batcher
+
+    got = {}
+    for device in (torch.device("cpu"), cuda):
+        cfg, _, state = _reduced_train_state(device)
+        params = state["params"]
+        gateway = _token_gateway()
+        batchers = [Batcher(lambda t: prefill(cfg, params, {"tokens": t}),
+                            lambda c, t, p: decode(cfg, params, c, t, p), batch_size=5,
+                            device=device) for _ in range(2)]
+        reqs = [b.submit_scan(gateway, "SELECT seq_id, tokens FROM tok", "/tok")
+                for b in batchers]
+        gateway.run()
+        fetched = [b.ingest_scan(gateway, r, seq_len=24, max_new_tokens=5)
+                   for b, r in zip(batchers, reqs)]
+        assert fetched == [(12, False), (12, True)]
+        launches = tattn.flash_attention.launches
+        done = [[(c.request_id, c.tokens) for c in b.run()] for b in batchers]
+        assert tattn.flash_attention.launches - launches == \
+            (2 * 3 * cfg.num_layers if device.type == "cuda" else 0)
+        assert done[0] == done[1]
+        got[device.type] = done[0]
+    assert got["cuda"] == got["cpu"]
+    assert len({t for _, toks in got["cpu"] for t in toks}) > 1
+
+
+@pytest.mark.parametrize("shape", [(1,), (1000,), (40, 257, 33), (3, 1 << 20)])
+def test_compress_decompress_on_the_card_equals_the_cpu(cuda, shape):
+    """``quantize_int8``, ``compress_decompress`` and the in-place pass on
+    the card equal the CPU's bit for bit, exact .5 ties (half to even) and
+    an all-zero leaf included."""
+    from repro_torch.training.compression import (compress_decompress, compress_decompress_,
+                                                  quantize_int8)
+
+    gen = torch.Generator().manual_seed(len(shape))
+    g = torch.randn(shape, generator=gen) * 1e-3
+    ef = torch.randn(shape, generator=gen) * 1e-5
+    ties = torch.tensor([127, 0.5, 1.5, -2.5, 126.5, -0.5]) * 2.0 ** -10
+    for x in (g, ties, torch.zeros(shape)):
+        for got, want in zip(quantize_int8(x.to(cuda)), quantize_int8(x)):
+            _assert_bits_equal(got.cpu(), want)
+    assert quantize_int8(ties.to(cuda))[0].tolist() == [127, 0, 2, -2, 126, 0]
+    want_deq, want_ef = compress_decompress(g, ef)
+    for got, want in zip(compress_decompress(g.to(cuda), ef.to(cuda)), (want_deq, want_ef)):
+        _assert_bits_equal(got.cpu(), want)
+    cg, cef = g.to(cuda), ef.to(cuda)
+    out = compress_decompress_(cg, cef)
+    assert out.data_ptr() == cg.data_ptr()
+    _assert_bits_equal(out.cpu(), want_deq)
+    _assert_bits_equal(cef.cpu(), want_ef)
+
+
+def test_reduced_compressed_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three train steps of reduced granite with ``compress_dp_grads=True`` on
+    the card against the same on the CPU, held as
+    ``tests/test_torch_compression.py`` holds the port to JAX: loss within
+    1e-4 relative, parameters within the summed learning rates; ``ef``, ``m``
+    and ``v`` on all but 1 % of each leaf within the train tolerances
+    (``1e-4 x 127 x`` the int8 step, ``1e-3`` of the leaf's largest value),
+    where the two devices' gradients straddle a rounding boundary of the
+    int8 grid, within 1.1 int8 steps."""
+    from repro_torch.training import TrainConfig, init_error_feedback, make_train_step
+
+    results = {}
+    for device in (torch.device("cpu"), cuda):
+        cfg, opt, state = _reduced_train_state(device)
+        state["ef"] = init_error_feedback(state["params"])
+        step = make_train_step(cfg, TrainConfig(optimizer=opt, remat="none",
+                                                compress_dp_grads=True))
+        metrics = []
+        for i in range(3):
+            state, m = step(state, _token_batch(cfg, (4, 64), seed=i, device=device))
+            metrics.append({k: float(v) for k, v in m.items()})
+        results[device.type] = (_map(lambda t: t.cpu(), state), metrics)
+    (got, gm), (want, wm) = results["cuda"], results["cpu"]
+    lrs = sum(m["lr"] for m in wm)
+    assert lrs > 0 and int(got["step"]) == 3
+    for g, w in zip(gm, wm):
+        assert g["loss"] == pytest.approx(w["loss"], rel=1e-4) and np.isfinite(g["loss"])
+    for (name, g), (_, w) in zip(_leaves(got["params"]), _leaves(want["params"])):
+        torch.testing.assert_close(g, w, rtol=0, atol=lrs, msg=name)
+    for (name, g), (_, w) in zip(_leaves(got["ef"]), _leaves(want["ef"])):
+        step = 2 * float(w.abs().max())
+        assert step > 0, name
+        d = (g - w).abs()
+        assert float((d > 1e-4 * 127 * step).float().mean()) <= 0.01, name
+        assert float(d.max()) <= 1.1 * step, name
+    for key in ("m", "v"):
+        for (name, g), (_, w) in zip(_leaves(got["opt"][key]), _leaves(want["opt"][key])):
+            scale = float(w.abs().max())
+            assert scale > 0, name
+            assert float(((g - w).abs() > 1e-3 * scale).float().mean()) <= 0.01, name

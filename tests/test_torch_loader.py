@@ -100,17 +100,6 @@ def test_loader_resumes_from_a_cursor_like_the_jax_loader(transport):
     _assert_same_batches(got, whole[8:])
 
 
-def test_loader_paths_that_need_qos_or_obs_raise_import_error():
-    loader = _loader(tcore, tengine, tdata, "thallus")
-    with pytest.raises(ImportError):
-        loader.metrics()
-    gated = tdata.ThallusLoader([], SQL, DATASET, seq_len=SEQ_LEN, batch_seqs=BATCH_SEQS,
-                                transport="gateway", gateway=object())
-    with pytest.raises(ImportError):
-        list(gated)
-    assert loader.health() == {}  # no gateway: nothing imported
-
-
 def test_launcher_loader_feeds_the_same_steps_as_jax():
     """The slice as a whole on reduced granite: the launcher's loader
     (2 replicas, thallus) → the device → 3 train steps, against the JAX

@@ -447,12 +447,3 @@ def test_init_train_state_from_a_generator():
     assert torch.equal(a["opt"]["master"]["embed"], a["params"]["embed"])
     assert a["opt"]["master"]["embed"].data_ptr() != a["params"]["embed"].data_ptr()
     assert not a["opt"]["m"]["embed"].any()
-
-
-def test_compressed_gradients_are_not_ported():
-    cfg = get_config("granite-3-2b").reduced()
-    tcfg = TrainConfig(compress_dp_grads=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6e"):
-        make_train_step(cfg, tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6e"):
-        init_train_state(cfg, tcfg, torch.Generator(), "cpu")
