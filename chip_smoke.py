@@ -19,7 +19,8 @@ Phases:
    draw and temperature sampled by ``nvidia-smi`` right after each timing.
    The take kernel is timed on the main path's 8-column launch, on one
    column and on one row of one column (its launch floor), each with the
-   host time of a call;
+   host time of a call; flash attention also at phase 7's long prefills
+   (olmoe's head dim 128, gemma's 256);
 3. slice 1 at real size: a 2^24-row x 8 float64 table (1 GiB) scanned
    with ``ThallusClient`` and landed by ``batch_to_device`` (kept resident),
    scanned again with ``RpcClient`` and landed by ``batch_to_device_packed``
@@ -51,7 +52,22 @@ Phases:
    after its step-4 checkpoint and resumed: the resumed losses must equal
    an uninterrupted run's within 1e-6 relative. No full-width checkpoint is
    written;
-6. report: a ``{"kernels": [...]}`` line, the card line, and last the
+6. the qos gateway: (e) two serving ``Batcher``s fetch granite's prompts
+   through one ``ScanGateway`` scan and serve them; (f) training from
+   ``ThallusLoader(transport="gateway")`` with int8 error-feedback
+   gradient compression;
+7. the other families: olmoe-1b-7b (MoE, 64 experts top-8, head dim 128)
+   and gemma-2b (MQA, head dim 256, GeGLU, 256000-word vocabulary) at full
+   width and depth, float32, serve phase 4's two request sets one model at
+   a time, each cohort's prefill held to the plain attention's as in phase
+   4. For olmoe both prefills' routings are recorded: a token may route
+   otherwise only at a near-tie of its k-th and (k+1)-th probabilities (or
+   after an earlier difference), at most 1 % of the tokens may, and the
+   limit holds over the rest; one MoE layer at the long cohort's 4096
+   tokens is also held to the same layer on the CPU. Each cohort's dropped
+   (token, expert) pairs and a profile of one prefill and one decode step
+   (products, flash, MoE dispatch, other, idle share) are printed;
+8. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any mismatch raises: the script then exits non-zero and prints no result
@@ -694,6 +710,10 @@ ATT_BF16_CASES = [(8, 65, 65, 64, 2, True), (2, 129, 63, 128, 1, False), (128, 1
 ATT_GRAD_CASES = [(8, 130, 97, 64, 2, True), (4, 65, 65, 16, 2, False)]
 GRANITE_ATT = (128, 1024, 1024, 64, 32, True)
 GRANITE_TRAIN_ATT = (256, 128, 128, 64, 64, True)  # 8 x 32 query rows, 8 x 8 K/V rows
+# Phase 7's long prefills (batch 4, S 1024): olmoe-1b-7b, 16 heads of 128 over
+# 16 K/V heads; gemma-2b, 8 heads padded to 16, of 256, over one K/V head.
+FAMILY_ATT = {"olmoe-1b-7b": (64, 1024, 1024, 128, 64, True),
+              "gemma-2b": (64, 1024, 1024, 256, 4, True)}
 
 
 def attention_inputs(dev, bh, sq, sk, hd, bkv, seed):
@@ -794,36 +814,51 @@ def time_attention_at(dev, timer, shape, batch, label) -> dict:
 
 def time_attention(dev, timer) -> dict:
     """The kernel at granite's long prefill (the serve path's and the 4 x
-    1024 train shape's) and, under ``train_default``, at the launcher's
-    default train shape (8 x 128)."""
+    1024 train shape's), under ``train_default`` at the launcher's default
+    train shape (8 x 128), and under ``families`` at phase 7's long
+    prefills (head dims 128 and 256)."""
     row = time_attention_at(dev, timer, GRANITE_ATT, 4, "main path")
     row["train_default"] = time_attention_at(dev, timer, GRANITE_TRAIN_ATT, 8, "train 8 x 128")
+    row["families"] = {arch: time_attention_at(dev, timer, shape, 4, f"{arch} prefill")
+                       for arch, shape in FAMILY_ATT.items()}
     return row
 
 
 # ------------------------------------------------------------------- serve
 def perturbed_params(cfg, dev):
     """The port's init at ``cfg`` (seed 0) with every norm weight set to
-    1 + 0.1 N(0, 1) (seed 1): the init's zero norms make every logit 0."""
+    1 + 0.1 N(0, 1) (seed 1), ``q_norm`` and ``k_norm`` last where the
+    config has them: the init's zero norms make every logit 0."""
     from repro_torch.models import init_params
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
+    attn = params["layers"]["attn"]
     for tree, key in ((params["layers"], "ln1"), (params["layers"], "ln2"),
-                      (params, "final_norm")):
-        tree[key] = 1.0 + 0.1 * torch.randn(tree[key].shape, generator=g, device=dev)
+                      (params, "final_norm"), (attn, "q_norm"), (attn, "k_norm")):
+        if key in tree:
+            tree[key] = 1.0 + 0.1 * torch.randn(tree[key].shape, generator=g, device=dev)
     return params
 
 
-KERNEL_CLASSES = ("flash_attention", "matmul", "attention_backward", "optimizer",
+KERNEL_CLASSES = ("flash_attention", "matmul", "dispatch", "attention_backward", "optimizer",
                   "compression", "other")
+# The ops of the MoE dispatch and combine (models/moe.py): the sorts, the
+# expert counts and their prefix sum, the gathers, the scatter into the
+# expert buffer and the scatter-add back to the tokens.
+DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::bincount", "aten::cumsum", "aten::index",
+                "aten::index_put", "aten::index_put_", "aten::_index_put_impl_",
+                "aten::index_add", "aten::index_add_")
 
 
 def _phase_of(event) -> str | None:
     """The train step's phase that launched a profiled op: the flash
     kernel's backward (autograd's node of the plain recompute), the
     optimizer (``adamw_update``'s profiler range) or the gradient compression
-    (``compress_decompress``'s); None elsewhere."""
+    (``compress_decompress``'s), the MoE dispatch (an op of
+    ``DISPATCH_OPS``); None elsewhere."""
     while event is not None:
+        if event.name in DISPATCH_OPS:
+            return "dispatch"
         if "_FlashAttentionBackward" in event.name:
             return "attention_backward"
         if event.name == "adamw_update":
@@ -846,13 +881,15 @@ def _kernel_class(name: str) -> str:
 def profile_device(label: str, fn) -> dict:
     """Device time of ``fn`` by kernel class, from a ``torch.profiler``
     window: the flash kernel's forward, matrix products (cuBLAS/CUTLASS
-    kernels), the attention backward (every kernel of the flash kernel's
+    kernels), the MoE dispatch (every kernel of an op in ``DISPATCH_OPS``),
+    the attention backward (every kernel of the flash kernel's
     plain-recompute backward), the optimizer (every kernel under
     ``adamw_update``), the gradient compression (every kernel under
     ``compress_decompress``) and the rest, against the window's host-clock time
     (ending in a synchronize). Kernels of one stream do not overlap, so
     their sum is the device's busy time. A kernel is put in a phase by the
-    op that launched it; one no op launched, by its name alone."""
+    op that launched it; one no op launched, by its name alone, and then
+    only its time is counted, not its launch."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -868,11 +905,14 @@ def profile_device(label: str, fn) -> dict:
                 and e.name not in ("adamw_update", "compress_decompress"):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     unplaced = dict(by_name)
+    launches = dict.fromkeys(KERNEL_CLASSES, 0)
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
             phase = _phase_of(e)
             for k in e.kernels:
-                groups[phase or _kernel_class(k.name)] += k.duration / 1e3
+                kind = phase or _kernel_class(k.name)
+                groups[kind] += k.duration / 1e3
+                launches[kind] += 1
                 unplaced[k.name] = unplaced.get(k.name, 0.0) - k.duration / 1e3
     for name, ms in unplaced.items():
         if ms > 1e-6:
@@ -880,11 +920,13 @@ def profile_device(label: str, fn) -> dict:
     busy = sum(by_name.values())
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": (1 - busy / wall_ms) if busy else None,
-           **{f"{k}_ms": v for k, v in groups.items()}}
+           **{f"{k}_ms": v for k, v in groups.items()},
+           **{f"{k}_launches": n for k, n in launches.items()}}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     idle = "not measured" if out["idle_share"] is None else f"{out['idle_share']:.4f}"
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
-        f"{idle}; " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items())
+        f"{idle}; " + ", ".join(f"{k} {v:.3f} ms ({launches[k]} launches)"
+                                for k, v in groups.items())
         + "; top kernels " + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in top))
     return out
 
@@ -893,19 +935,107 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
+# An MoE token's routing is held to another run's only where its k-th and
+# (k+1)-th router probabilities lie more than ROUTE_GAP apart, relative to
+# the k-th: the kernel and the plain attention differ by ~1e-6, which moves a
+# probability by a few 1e-6 and can swap two experts that tie to within it.
+# A swapped expert moves its token's output by ~1/k of an expert's output,
+# and through attention, capacity and later layers other tokens' a little.
+ROUTE_GAP = 1e-5
+# At most this share of a prefill's tokens may route otherwise, in some
+# layer, through the kernel than through the plain attention.
+FLIP_SHARE = 0.01
+# One MoE layer on the card against the same layer on the CPU from the same
+# input: the CPU tests' LAYER_TOL, |card - cpu| <= tol + tol |cpu|.
+MOE_LAYER_TOL = 3e-5
+
+
+class RouteRecorder:
+    """While active, records every routing of the port's MoE layers (the
+    ``moe.route`` that ``_dispatch_one_group`` calls) and, for each, every
+    token's gap between its k-th and (k+1)-th router probabilities,
+    relative to the k-th."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.routes, self.gaps = [], []
+        self._moe, self._route = moe, moe.route
+
+        def recording(xt, router, m, C):
+            r = self._route(xt, router, m, C)
+            probs = torch.softmax(torch.einsum("td,de->te", xt.float(), router.float()), -1)
+            top = torch.sort(probs, -1, descending=True).values
+            self.routes.append(r)
+            self.gaps.append((top[:, m.top_k - 1] - top[:, m.top_k]) / top[:, m.top_k - 1])
+            return r
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def dropped(self) -> int:
+        return sum(int((~r.keep).sum()) for r in self.routes)
+
+
+def token_routing(r):
+    """One routing's experts per token and whether each pair was kept, each
+    (T, K), the experts in ascending order: the order of a token's top k
+    does not change which pairs capacity keeps, nor the output."""
+    keep = torch.empty_like(r.keep)
+    keep[r.sort_idx] = r.keep
+    ids, order = torch.sort(r.gate_ids, -1)
+    return ids, keep.view(r.gate_ids.shape).gather(-1, order)
+
+
+def compare_routings(kernel: RouteRecorder, plain: RouteRecorder, where: str) -> dict:
+    """Two prefills' routings, layer by layer. Returns the tokens routed
+    otherwise in some layer (``differ``, (T,) bool) and the counts of
+    flipped (token, layer)s (another set of experts). Raises on a flip that is not
+    at a near-tie (gap under ROUTE_GAP in either run) unless a routing had
+    already differed in an earlier layer: from there on the two runs' inputs
+    differ by more than the attention's rounding, and the first flip is the
+    one the kernel can be held to."""
+    differ, flips, near, earlier = None, 0, 0, False
+    for layer, (rk, rp, gk, gp) in enumerate(zip(kernel.routes, plain.routes,
+                                                 kernel.gaps, plain.gaps)):
+        (ik, kk), (ip, kp) = token_routing(rk), token_routing(rp)
+        gate = (ik != ip).any(-1)
+        tie = torch.minimum(gk, gp) < ROUTE_GAP
+        if not earlier and (gate & ~tie).any():
+            t = int(torch.nonzero(gate & ~tie)[0])
+            raise AssertionError(f"{where}: layer {layer} token {t} routed {ik[t].tolist()} "
+                                 f"through the kernel, {ip[t].tolist()} through the plain "
+                                 f"attention, at a gap of {float(torch.minimum(gk, gp)[t]):.3e} "
+                                 f"(limit {ROUTE_GAP}), with no earlier difference")
+        layer_differ = gate | (kk != kp).any(-1)
+        differ = layer_differ if differ is None else differ | layer_differ
+        flips += int(gate.sum())
+        near += int((gate & tie).sum())
+        earlier = earlier or bool(layer_differ.any())
+    return {"differ": differ, "flips": flips, "flips_at_near_ties": near,
+            "tokens_routed_otherwise": int(differ.sum())}
+
+
 def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
     """Each cohort's prefill through the kernel (rerun on the cohort's
     tokens) against a prefill through the plain attention, swapped in here
     and restored; the kernel rerun's greedy first tokens are the served
-    ones. The first cohort's prefill and one decode step are also profiled
-    into ``prof``."""
+    ones. For an MoE config both runs' routings are recorded: at most
+    FLIP_SHARE of the tokens may route otherwise, each first flip at a
+    near-tie (:func:`compare_routings`), and the limit holds over the tokens
+    routed alike; the rerun's dropped (token, expert) pairs are counted.
+    The first cohort's prefill and one decode step are also profiled into
+    ``prof``."""
     from repro_torch.kernels.attention import flash_gqa_ref
     from repro_torch.models import decode, prefill, transformer
     first = {c.request_id: c.tokens[0] for c in res.completions}
     out, rid = [], 0
     for i, toks in enumerate(res.cohort_tokens):
         tokens = torch.from_numpy(toks).to(params["embed"].device)
-        logits, cache = prefill(cfg, params, {"tokens": tokens})
+        with RouteRecorder() as kernel_routes:
+            logits, cache = prefill(cfg, params, {"tokens": tokens})
         greedy = torch.argmax(logits[:, -1], -1).tolist()
         served = [first[rid + j] for j in range(len(toks))]
         if greedy != served:
@@ -914,13 +1044,26 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
         kernel_fn = transformer.flash_gqa
         transformer.flash_gqa = flash_gqa_ref
         try:
-            want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
+            with RouteRecorder() as plain_routes:
+                want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
         finally:
             transformer.flash_gqa = kernel_fn
+        routing = {}
+        alike = torch.ones(toks.shape, dtype=torch.bool, device=tokens.device)
+        if cfg.moe is not None:
+            routing = compare_routings(kernel_routes, plain_routes, f"{label} cohort {i}")
+            alike = ~routing.pop("differ").view(toks.shape)
+            routing["dropped_pairs"] = kernel_routes.dropped()
+            routing["pairs"] = toks.size * cfg.moe.top_k * cfg.num_layers
+            if routing["tokens_routed_otherwise"] > FLIP_SHARE * toks.size:
+                raise AssertionError(f"{label} cohort {i}: {routing} routed otherwise, more "
+                                     f"than {FLIP_SHARE} of {toks.size} tokens")
+        del kernel_routes, plain_routes
+        rows = slice(None) if bool(alike.all()) else alike  # a view where all agree
         real, want_real = logits[..., :cfg.vocab_size], want_logits[..., :cfg.vocab_size]
-        errs = {"logits": rel_err(real, want_real),
-                "k": rel_err(cache["k"], want_cache["k"]),
-                "v": rel_err(cache["v"], want_cache["v"])}
+        errs = {"logits": rel_err(real[rows], want_real[rows]),
+                "k": rel_err(cache["k"][:, rows], want_cache["k"][:, rows]),
+                "v": rel_err(cache["v"][:, rows], want_cache["v"][:, rows])}
         std = float(want_real.std())
         if not torch.equal(logits[..., cfg.vocab_size:], want_logits[..., cfg.vocab_size:]):
             raise AssertionError(f"{label} cohort {i}: padded vocabulary not masked alike")
@@ -932,19 +1075,83 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
                                  f"{SERVE_REL} relative: {bad}")
         if i == 0:
             prof[f"{label} prefill {tuple(toks.shape)}"] = profile_device(
-                f"{label} prefill {tuple(toks.shape)}",
+                f"{cfg.name} {label} prefill {tuple(toks.shape)}",
                 lambda: prefill(cfg, params, {"tokens": tokens}))
             grown = {k: torch.cat([c, torch.zeros_like(c[:, :, :1])], 2) for k, c in cache.items()}
             step = torch.tensor(greedy, device=tokens.device)[:, None]
             prof[f"{label} decode step"] = profile_device(
-                f"{label} decode step at position {toks.shape[1]}",
+                f"{cfg.name} {label} decode step at position {toks.shape[1]}",
                 lambda: decode(cfg, params, grown, step, toks.shape[1]))
             del grown
-        log(f"[serve] {label} cohort {i} {tuple(toks.shape)}: kernel vs plain prefill "
+        moe_note = "" if not routing else (
+            f"; routing: {routing['dropped_pairs']} of {routing['pairs']} (token, expert) pairs "
+            f"dropped by capacity, {routing['flips']} flips ({routing['flips_at_near_ties']} at "
+            f"near-ties), {routing['tokens_routed_otherwise']} tokens routed otherwise "
+            f"(limit {FLIP_SHARE} of {toks.size}), errors over the rest")
+        log(f"[serve] {cfg.name} {label} cohort {i} {tuple(toks.shape)}: kernel vs plain prefill "
             f"max rel err logits {errs['logits']:.3e} k {errs['k']:.3e} v {errs['v']:.3e} "
-            f"(limit {SERVE_REL}); logit std {std:.4f} smi={gpu_state()}")
-        out.append(dict(shape=list(toks.shape), logit_std=std, **errs))
+            f"(limit {SERVE_REL}); logit std {std:.4f}{moe_note} smi={gpu_state()}")
+        out.append(dict(shape=list(toks.shape), logit_std=std, **errs, **routing))
         del logits, cache, want_logits, want_cache
+    return out
+
+
+def check_moe_layer(cfg, params, tokens) -> dict:
+    """One MoE layer at a long cohort's shape on the card against the same
+    layer on the CPU, from identical inputs: layer 0's weights and its input
+    in a prefill of ``tokens``. Every token whose k-th and (k+1)-th
+    probabilities lie more than ROUTE_GAP apart gets the same experts on
+    both; every token routed alike (experts and capacity) gets its output
+    within MOE_LAYER_TOL. Raises on a miss."""
+    from repro_torch.models import moe, prefill, transformer
+    inputs = []
+    moe_ffn = transformer.moe_ffn
+
+    def capture(x, p, m, activation):
+        if not inputs:
+            inputs.append(x.detach().clone())
+        return moe_ffn(x, p, m, activation)
+
+    transformer.moe_ffn = capture
+    try:
+        prefill(cfg, params, {"tokens": tokens})
+    finally:
+        transformer.moe_ffn = moe_ffn
+    x = inputs[0]
+    layer0 = transformer.layer_params(params["layers"], 0)["moe"]
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    runs = []
+    t0 = time.perf_counter()
+    for dev in (x.device, torch.device("cpu")):
+        with RouteRecorder() as rec:
+            y = moe.moe_ffn(x.to(dev), to(layer0, dev), cfg.moe, cfg.activation)
+        runs.append((y.cpu().reshape(-1, x.shape[-1]), rec.routes[0], rec.gaps[0].cpu()))
+    (y, r_card, _), (want, r_cpu, gap) = runs
+    (ic, kc), (ip, kp) = token_routing(r_card), token_routing(r_cpu)
+    same_ids = (ic.cpu() == ip).all(-1)
+    alike = same_ids & (kc.cpu() == kp).all(-1)
+    if (~same_ids & (gap > ROUTE_GAP)).any():
+        t = int(torch.nonzero(~same_ids & (gap > ROUTE_GAP))[0])
+        raise AssertionError(f"MoE layer: token {t} routed {ic[t].tolist()} on the card, "
+                             f"{ip[t].tolist()} on the CPU, at a gap of {float(gap[t]):.3e}")
+    diff = (y - want).abs()[alike]
+    bad = ~(diff <= MOE_LAYER_TOL + MOE_LAYER_TOL * want.abs()[alike])
+    if bad.any() or not float(want.abs().max()) > 0:
+        raise AssertionError(f"MoE layer: {int(bad.sum())} elements beyond {MOE_LAYER_TOL}, "
+                             f"max |diff| {float(diff.max())}")
+    out = {"tokens": x.shape[0] * x.shape[1],
+           "capacity": moe.capacity_for(x.shape[0] * x.shape[1], cfg.moe),
+           "dropped_pairs": int((~r_cpu.keep).sum()), "near_ties": int((gap <= ROUTE_GAP).sum()),
+           "routed_otherwise": int((~alike).sum()), "max_abs_err": float(diff.max()),
+           "seconds": time.perf_counter() - t0}
+    log(f"[serve] {cfg.name} MoE layer 0 on {out['tokens']} tokens, card against CPU: "
+        f"{out['routed_otherwise']} tokens routed otherwise ({out['near_ties']} near-ties under "
+        f"{ROUTE_GAP}), {out['dropped_pairs']} pairs dropped by capacity, max |diff| "
+        f"{out['max_abs_err']:.3e} over the rest (limit {MOE_LAYER_TOL} + {MOE_LAYER_TOL} |cpu|) "
+        f"in {out['seconds']:.2f} s smi={gpu_state()}")
     return out
 
 
@@ -956,10 +1163,14 @@ def phase_serve(dev, cfg, wrappers) -> dict:
     params = perturbed_params(cfg, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
+    ffn = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, "
+           f"capacity factor {cfg.moe.capacity_factor}" if cfg.moe else f"d_ff {cfg.d_ff}")
+    padded = f" padded to {cfg.eff_heads}" if cfg.eff_heads != cfg.num_heads else ""
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); {n_params} float32 parameters "
-        f"made in {time.perf_counter() - t0:.2f} s smi={gpu_state()}")
+        f"{cfg.num_heads}{padded}/{cfg.eff_kv}, head_dim "
+        f"{cfg.resolved_head_dim}, {ffn}, {cfg.activation}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}); {n_params} float32 parameters made in "
+        f"{time.perf_counter() - t0:.2f} s smi={gpu_state()}")
     sets = {
         "a_defaults": (make_requests(cfg, 8, 12, 8), 4),
         "b_long_prompts": (make_requests(cfg, 4, 1024, 8, min_len=900, seed=1), 4),
@@ -984,22 +1195,48 @@ def phase_serve(dev, cfg, wrappers) -> dict:
                "prefill_ms": [s * 1e3 for s in res.prefill_s],
                "decode_ms": [s * 1e3 for s in res.decode_s],
                "prompt_lens": [c.shape[1] for c in res.cohort_tokens]}
-        log(f"[serve] {label}: {row['requests']} requests, {row['tokens']} tokens in "
+        log(f"[serve] {cfg.name} {label}: {row['requests']} requests, {row['tokens']} tokens in "
             f"{row['seconds']:.4f} s ({row['tokens_per_s']:.3f} tok/s); cohorts padded to "
             f"{row['prompt_lens']}; prefill ms per cohort {[round(x, 3) for x in row['prefill_ms']]}; "
             f"decode ms per step median {statistics.median(row['decode_ms']):.3f} "
             f"(min {min(row['decode_ms']):.3f}, max {max(row['decode_ms']):.3f}, "
             f"{len(row['decode_ms'])} steps) smi={gpu_state()}")
         for c in res.completions[:4]:
-            log(f"[serve] {label} req {c.request_id}: {c.tokens} smi={gpu_state()}")
+            log(f"[serve] {cfg.name} {label} req {c.request_id}: {c.tokens} smi={gpu_state()}")
         out["sets"][label] = row
-    log(f"[serve] launches in the serve phase: {launches}; "
+    log(f"[serve] {cfg.name}: launches in the serve phase: {launches}; "
         f"torch.cuda.max_memory_allocated {peak} B smi={gpu_state()}")
     out["profile"] = {}
     for label, res in results.items():
         out["sets"][label]["cohorts"] = check_cohorts(cfg, params, label, res, out["profile"])
+    if cfg.moe is not None:
+        long_cohort = results["b_long_prompts"].cohort_tokens[0]
+        out["moe_layer"] = check_moe_layer(cfg, params, torch.from_numpy(long_cohort).to(dev))
     del params, results
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- families
+FAMILY_ARCHS = ("olmoe-1b-7b", "gemma-2b")
+
+
+def phase_families(dev, wrappers) -> dict:
+    """Phase 7: olmoe-1b-7b and gemma-2b at full width and depth, one model
+    on the card at a time, serve phase 4's request sets through ``serve()``
+    with the same checks (olmoe's routing-aware); each served path launches
+    the flash kernel once per layer per cohort."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        run = phase_serve(dev, cfg, wrappers)
+        expected = sum(len(r["cohorts"]) for r in run["sets"].values()) * cfg.num_layers
+        if run["launches"]["flash_attention"] != expected:
+            raise AssertionError(f"{arch}: flash_attention launched "
+                                 f"{run['launches']['flash_attention']} times on the served "
+                                 f"path, expected {expected}")
+        out[arch] = run
     return out
 
 
@@ -1567,6 +1804,9 @@ def main(argv=None) -> int:
     gateway_out = phase_gateway(dev, cfg, wrappers, setup["smi"],
                                 train_out["shapes"]["c_default"])
     flash_paths.update(gateway_out["launches"])
+    families_out = phase_families(dev, wrappers)
+    flash_paths.update({f"serve_{arch}": r["launches"]["flash_attention"]
+                        for arch, r in families_out.items()})
     launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
@@ -1582,6 +1822,10 @@ def main(argv=None) -> int:
             row.update(launches_by_path=flash_paths, train_default_shape={
                            k: t["train_default"][k] for k in ("shape", "ms", "plain_ms",
                                                               "library_ms", "bound_ms")},
+                       family_shapes={arch: {k: r[k] for k in ("shape", "ms", "plain_ms",
+                                                               "library_ms", "bound_ms",
+                                                               "bound_by")}
+                                      for arch, r in t["families"].items()},
                        max_abs_err=att_err["float32"], bf16_max_abs_err=att_err["bfloat16"],
                        grad_wired=True, grad_backward="attention_ref recompute",
                        tolerance={"atol": ATT_ATOL, "rtol": ATT_RTOL,
@@ -1600,7 +1844,7 @@ def main(argv=None) -> int:
                                                        "library_ms", "bound_ms")})
         report.append(row)
     phases = {"slice": slice_out, "serve": serve_out, "train": train_out,
-              "gateway": gateway_out}
+              "gateway": gateway_out, "families": families_out}
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
         f"phases={json.dumps(phases)}")
     print(json.dumps({"kernels": report}))

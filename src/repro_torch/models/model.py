@@ -1,8 +1,12 @@
-"""Unified model API for the dense family: the port of
+"""Unified model API for the dense, MoE and VLM families: the port of
 :mod:`repro.models.model`'s ``init_params``, ``param_shapes``, ``forward``,
 ``loss_fn``, ``prefill``, ``decode`` and ``init_cache``.
 
-Other families raise ``NotImplementedError`` naming their ROADMAP item.
+Batch dicts are the JAX package's: ``{"tokens": (B, S), "labels": (B, S)}``,
+and for ``vlm`` also ``{"patch_embeds": (B, P, D)}``, which go in front of
+the text, so that its logits cover ``P + S`` positions and its loss the text
+positions only. The other families (``ssm``, ``hybrid``, ``audio``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,23 +20,27 @@ from .layers import softmax_cross_entropy
 
 Params = dict[str, Any]
 
+FAMILIES = ("dense", "moe", "vlm")
+
 _TODO = {
-    "moe": "the moe family is not ported yet (ROADMAP item 8, models/moe.py)",
-    "vlm": "the vlm family is not ported yet (ROADMAP item 8, extra_embeds)",
     "ssm": "the ssm family is not ported yet (ROADMAP item 8, models/mamba2.py)",
     "hybrid": "the hybrid family is not ported yet (ROADMAP item 8, models/hybrid.py)",
     "audio": "the audio family is not ported yet (ROADMAP item 8, models/encdec.py)",
 }
 
 
-def _dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+def _ported(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(_TODO.get(cfg.family, cfg.family))
+
+
+def _extra_embeds(cfg: ArchConfig, batch: dict):
+    return batch["patch_embeds"] if cfg.family == "vlm" else None
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 dtype=torch.float32, device=None) -> Params:
-    _dense(cfg)
+    _ported(cfg)
     return transformer.init_transformer_params(cfg, generator, dtype, device)
 
 
@@ -44,37 +52,44 @@ def param_shapes(cfg: ArchConfig, dtype=torch.bfloat16) -> Params:
 
 def forward(cfg: ArchConfig, params: Params, batch: dict, *,
             remat: str = "full") -> torch.Tensor:
-    """``batch["tokens"]`` (B, S) -> logits (B, S, V)."""
-    _dense(cfg)
-    return transformer.transformer_forward(cfg, params, batch["tokens"], remat=remat)
+    """``batch["tokens"]`` (B, S) -> logits (B, S, V); (B, P + S, V) for
+    ``vlm``."""
+    _ported(cfg)
+    return transformer.transformer_forward(cfg, params, batch["tokens"],
+                                           extra_embeds=_extra_embeds(cfg, batch),
+                                           remat=remat)
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: dict, *,
             remat: str = "full") -> torch.Tensor:
     """Token-mean cross-entropy over the positions whose ``labels`` are
-    >= 0 (``shift_labels`` marks the last position -1)."""
+    >= 0 (``shift_labels`` marks the last position -1); for ``vlm``, over
+    the text positions only."""
     logits = forward(cfg, params, batch, remat=remat)
     labels = batch["labels"]
+    if cfg.family == "vlm":                      # text positions only
+        logits = logits[:, cfg.vlm.num_patches:, :]
     mask = (labels >= 0).float()
     return softmax_cross_entropy(logits, torch.clamp(labels, min=0), mask)
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: dict):
     """``batch["tokens"]`` (B, S) -> (logits (B, S, V), cache of (L, B, S,
-    KV, hd) ``k`` and ``v``). Nothing is recomputed: serving takes no
-    gradient."""
-    _dense(cfg)
+    KV, hd) ``k`` and ``v``); ``P + S`` positions for ``vlm``. Nothing is
+    recomputed: serving takes no gradient."""
+    _ported(cfg)
     return transformer.transformer_forward(cfg, params, batch["tokens"],
+                                           extra_embeds=_extra_embeds(cfg, batch),
                                            remat="none", collect_cache=True)
 
 
 def decode(cfg: ArchConfig, params: Params, cache: Params, tokens: torch.Tensor,
            position: int):
-    _dense(cfg)
+    _ported(cfg)
     return transformer.transformer_decode(cfg, params, cache, tokens, position)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Params:
-    _dense(cfg)
+    _ported(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype, device)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense family: the port of
+"""Decoder-only transformer (dense / MoE / VLM families): the port of
 :mod:`repro.models.transformer`.
 
 Parameters are the JAX package's tree, as a dict of tensors with the layers
@@ -25,11 +25,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig
 from ..device import resolve
 from ..kernels.attention import flash_gqa
-from .layers import apply_rope, decode_attention, gated_mlp, rms_norm
+from .layers import _rounded, apply_rope, decode_attention, gated_mlp, rms_norm
+from .moe import init_moe_params, moe_ffn
 
 Params = dict[str, Any]
-
-MOE_TODO = "MoE layers are not ported yet (ROADMAP item 8, models/moe.py)"
 
 
 # ---------------------------------------------------------------------------
@@ -41,9 +40,8 @@ def init_transformer_params(cfg: ArchConfig, generator: torch.Generator | None,
                             dtype=torch.float32, device=None) -> Params:
     """The JAX package's tree, shapes and scales, drawn from ``generator``
     (which must live on ``device``; ``None`` on the meta device): normal
-    weights, zero norm weights."""
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+    weights, zero norm weights; ``layers["moe"]`` in place of
+    ``layers["mlp"]`` when ``cfg.moe`` is set."""
     device = resolve(device)
     D, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV, L, F, V = (cfg.eff_heads, cfg.eff_kv, cfg.num_layers,
@@ -70,12 +68,15 @@ def init_transformer_params(cfg: ArchConfig, generator: torch.Generator | None,
         "attn": attn,
         "ln1": zeros((L, D)),
         "ln2": zeros((L, D)),
-        "mlp": {
+    }
+    if cfg.moe is not None:
+        layers["moe"] = init_moe_params(generator, D, cfg.moe, dtype, device, L)
+    else:
+        layers["mlp"] = {
             "wg": normal((L, D, F), s_d),
             "wu": normal((L, D, F), s_d),
             "wd": normal((L, F, D), 1.0 / math.sqrt(F)),
-        },
-    }
+        }
     params: Params = {
         "embed": normal((V, D)),
         "layers": layers,
@@ -135,7 +136,7 @@ def _attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
 def _ffn_block(cfg: ArchConfig, layer_p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
+        return moe_ffn(x, layer_p["moe"], cfg.moe, cfg.activation)
     m = layer_p["mlp"]
     return gated_mlp(x, m["wg"], m["wu"], m["wd"], cfg.activation)
 
@@ -184,7 +185,7 @@ def _maybe_remat(fn, remat: str):
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     x = torch.nn.functional.embedding(tokens.long(), params["embed"])
     if cfg.embed_scale:
-        x = x * math.sqrt(cfg.d_model)
+        x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
     return x
 
 
@@ -212,15 +213,22 @@ def logits_fn(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def transformer_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
+                        extra_embeds: torch.Tensor | None = None,
                         remat: str = "full", collect_cache: bool = False):
     """Full-sequence forward. Returns logits, and the per-layer (k, v) cache
     stacked (L, B, S, KV, hd) when ``collect_cache`` (prefill).
+
+    ``extra_embeds`` (B, P, D) (the VLM's visual tokens) go in front of the
+    scaled token embeddings, so the logits and the cache cover ``P + S``
+    positions.
 
     ``remat`` (``none | full | dots``) decides what the backward recomputes
     of each decoder layer; the values are the same in all three. Every row's
     positions are ``arange(S)``, as in the JAX package: a left-padded row
     attends to its pad tokens, which are not masked."""
     x = embed_tokens(cfg, params, tokens)
+    if extra_embeds is not None:       # VLM: prepend visual tokens
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     layer = _maybe_remat(functools.partial(_decoder_layer, cfg), remat)

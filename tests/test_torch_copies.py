@@ -1,7 +1,7 @@
 """Copy-drift guard: the port's copies of the numpy-only ``core``,
 ``engine``, ``cluster``, ``configs``, ``obs``, ``sched`` and ``qos`` modules
-and of ``data/tokens.py`` and ``data/loader.py`` stay the JAX package's
-modules.
+and of ``data/tokens.py``, ``data/loader.py`` and ``utils/report.py`` stay
+the JAX package's modules.
 
 Each copy differs from its original only in its first line (which names the
 original) and its import statements. The behaviour checks run both packages on the
@@ -11,8 +11,9 @@ nulls and utf8; every architecture config, full and reduced, and the token
 tables (``tests/test_torch_loader.py`` runs both loaders, and with them
 the cluster copies; ``tests/test_torch_qos.py`` runs the gateway, the
 scheduler and the registry of both). The ``obs``, ``sched`` and ``qos``
-copies import only each other and ``cluster``/``core``, relatively, so each
-is its original byte for byte after its first line. Any change to one copy
+copies import only each other and ``cluster``/``core``, relatively, and
+``utils/report.py`` only the standard library, so each is its original byte
+for byte after its first line. Any change to one copy
 without the other fails here.
 """
 import ast
@@ -48,7 +49,8 @@ COPIES = [f"core/{m}.py" for m in ("__init__", "schema", "recordbatch", "bulk", 
                                   "events", "health", "slo", "workload")] + \
          [f"sched/{m}.py" for m in ("__init__", "share", "steal", "preempt", "scheduler")] + \
          [f"qos/{m}.py" for m in ("__init__", "queue", "metrics", "admission", "distributed",
-                                  "gateway")]
+                                  "gateway")] + \
+         ["utils/report.py"]
 
 
 class _DropImports(ast.NodeTransformer):
@@ -72,7 +74,8 @@ def test_copy_matches_original_but_for_imports(rel):
     assert _code(body) == _code(original)
 
 
-@pytest.mark.parametrize("rel", [r for r in COPIES if r.split("/")[0] in ("obs", "sched", "qos")])
+@pytest.mark.parametrize("rel", [r for r in COPIES
+                                 if r.split("/")[0] in ("obs", "sched", "qos", "utils")])
 def test_copy_differs_only_in_its_first_line(rel):
     original = (ROOT / "src" / "repro" / rel).read_text()
     copy = (ROOT / "src" / "repro_torch" / rel).read_text()

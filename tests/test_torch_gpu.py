@@ -580,3 +580,74 @@ def test_reduced_compressed_train_steps_on_the_card_match_the_cpu(cuda):
             scale = float(w.abs().max())
             assert scale > 0, name
             assert float(((g - w).abs() > 1e-3 * scale).float().mean()) <= 0.01, name
+
+
+def _perturbed_family_params(cfg, device):
+    """``cfg``'s params drawn on the CPU (seed 0) with every norm weight
+    (``q_norm``/``k_norm`` too) set to 1 + 0.1 N(0, 1) (seed 1), on ``device``."""
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    layers = params["layers"]
+    nodes = [(layers, "ln1"), (layers, "ln2"), (params, "final_norm")]
+    nodes += [(layers["attn"], k) for k in ("q_norm", "k_norm") if k in layers["attn"]]
+    for node, key in nodes:
+        node[key] = 1 + 0.1 * torch.randn(node[key].shape, generator=g)
+    return _map(lambda t: t.to(device), params)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-2b"])
+def test_reduced_family_prefill_through_the_kernel_matches_the_cpu(cuda, arch, monkeypatch):
+    """Reduced olmoe (MoE, qk-norm, head dim 16) and reduced gemma (MQA,
+    GeGLU, zero-centred norms, ``embed_scale``): prefill on the card, its
+    attention in the kernel (one launch per layer), against the same prefill
+    on the CPU through the plain attention. An MoE layer's routing must be
+    the CPU's, token for token (no two experts tie at this size)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, prefill
+
+    cfg = get_config(arch).reduced()
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 45)).astype(np.int32))
+    routes = []
+    route = moe.route
+    monkeypatch.setattr(moe, "route", lambda *a: routes.append(route(*a)) or routes[-1])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        launches = tattn.flash_attention.launches
+        out[dev.type] = prefill(cfg, _perturbed_family_params(cfg, dev),
+                                {"tokens": tokens.to(dev)})
+        assert tattn.flash_attention.launches == launches + (cfg.num_layers if dev == cuda else 0)
+    (logits, cache), (want_logits, want_cache) = out["cuda"], out["cpu"]
+    assert want_logits[..., :cfg.vocab_size].std() > 0.1
+    torch.testing.assert_close(logits.cpu(), want_logits, **ATT_TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name].cpu(), want_cache[name], **ATT_TOL)
+    if cfg.moe is not None:
+        assert len(routes) == 2 * cfg.num_layers
+        for a, b in zip(routes[:cfg.num_layers], routes[cfg.num_layers:]):
+            assert torch.equal(a.gate_ids.cpu(), b.gate_ids) and torch.equal(a.keep.cpu(), b.keep)
+    else:
+        assert not routes
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-2b"])
+def test_launchers_run_the_family_on_the_card(cuda, arch, tmp_path, capsys):
+    """``python -m repro_torch.launch.serve`` and ``.train`` at the reduced
+    ``arch`` on the card (their default device): prefill attention in the
+    kernel, finite losses, a checkpoint."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+
+    launches = tattn.flash_attention.launches
+    launch_serve.main(["--arch", arch, "--reduced"])
+    out = capsys.readouterr().out
+    assert "served 8 requests, 64 tokens" in out and "on cuda" in out, out
+    assert tattn.flash_attention.launches > launches
+    history = launch_train.main(["--arch", arch, "--reduced", "--steps", "2", "--log-every", "1",
+                                 "--batch-seqs", "4", "--seq-len", "16", "--num-seqs", "32",
+                                 "--ckpt-dir", str(tmp_path)])
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert (tmp_path / arch / "ckpt_00000002.thallus").exists()
