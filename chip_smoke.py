@@ -20,7 +20,8 @@ Phases:
    The take kernel is timed on the main path's 8-column launch, on one
    column and on one row of one column (its launch floor), each with the
    host time of a call; flash attention also at phase 7's long prefills
-   (olmoe's head dim 128, gemma's 256);
+   (olmoe's head dim 128, gemma's 256) and at zamba2's (phase 8: 32 query
+   heads over 32 K/V heads of 64);
 3. slice 1 at real size: a 2^24-row x 8 float64 table (1 GiB) scanned
    with ``ThallusClient`` and landed by ``batch_to_device`` (kept resident),
    scanned again with ``RpcClient`` and landed by ``batch_to_device_packed``
@@ -67,7 +68,23 @@ Phases:
    tokens is also held to the same layer on the CPU. Each cohort's dropped
    (token, expert) pairs and a profile of one prefill and one decode step
    (products, flash, MoE dispatch, other, idle share) are printed;
-8. report: a ``{"kernels": [...]}`` line, the card line, and last the
+8. the SSM families: mamba2-780m (48 Mamba2 layers, no attention) and
+   zamba2-1.2b (38 Mamba2 layers and 6 calls of one shared attention block,
+   whose prefill attention is the flash kernel) at full width and depth,
+   float32, serve phase 4's two request sets and a third of 4 prompts of
+   exactly 1024 tokens, where the SSD scan runs at its chunk of 256 (an odd
+   cohort length runs it at Q = 1: the JAX package's chunk rule). Checks:
+   the served tokens are not all one; every decode step's logits (and the
+   prefill's last) agree with a teacher-forced ``forward`` over prompt and
+   served tokens, whose argmax is the served token (or ties it); the SSD
+   at chunk 256 agrees with chunk 1 on the 1024-token cohort's first layer
+   input (both timed); one Mamba2 block on the card agrees with the CPU on
+   the 4 x 1003-token cohort's first layer input; zamba2's prefill through
+   the kernel agrees with the plain attention's; flash launches 6 times a
+   zamba2 cohort, never for mamba2 nor in a plain rerun. A profile of one
+   prefill per set and one decode step splits products, flash, the SSD
+   scan (``ssd_chunked``'s profiler range) and the rest;
+9. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any mismatch raises: the script then exits non-zero and prints no result
@@ -703,7 +720,7 @@ ATT_CASES = ([(2, 128, 128, 64, 2, c) for c in (True, False)]
              + [(2, 63, 129, 64, 1, True), (2, 129, 63, 64, 1, False), (4, 65, 129, 16, 2, True),
                 (1, 63, 65, 32, 1, True), (1, 65, 33, 128, 1, True), (1, 33, 65, 128, 1, False),
                 (1, 65, 65, 256, 1, True), (1, 31, 97, 256, 1, False)]
-             + [(128, 1024, 1024, 64, 32, True)])
+             + [(128, 1024, 1024, 64, 32, True), (128, 1024, 1024, 64, 128, True)])
 # bfloat16 through the kernel (widened to float32, narrowed back) and the
 # gradients through its autograd function: (BH, Sq, Sk, hd, KV rows, causal).
 ATT_BF16_CASES = [(8, 65, 65, 64, 2, True), (2, 129, 63, 128, 1, False), (128, 1024, 1024, 64, 32, True)]
@@ -711,9 +728,11 @@ ATT_GRAD_CASES = [(8, 130, 97, 64, 2, True), (4, 65, 65, 16, 2, False)]
 GRANITE_ATT = (128, 1024, 1024, 64, 32, True)
 GRANITE_TRAIN_ATT = (256, 128, 128, 64, 64, True)  # 8 x 32 query rows, 8 x 8 K/V rows
 # Phase 7's long prefills (batch 4, S 1024): olmoe-1b-7b, 16 heads of 128 over
-# 16 K/V heads; gemma-2b, 8 heads padded to 16, of 256, over one K/V head.
+# 16 K/V heads; gemma-2b, 8 heads padded to 16, of 256, over one K/V head;
+# phase 8's: zamba2-1.2b's shared block, 32 heads of 64 over 32 K/V heads.
 FAMILY_ATT = {"olmoe-1b-7b": (64, 1024, 1024, 128, 64, True),
-              "gemma-2b": (64, 1024, 1024, 256, 4, True)}
+              "gemma-2b": (64, 1024, 1024, 256, 4, True),
+              "zamba2-1.2b": (128, 1024, 1024, 64, 128, True)}
 
 
 def attention_inputs(dev, bh, sq, sk, hd, bkv, seed):
@@ -816,7 +835,7 @@ def time_attention(dev, timer) -> dict:
     """The kernel at granite's long prefill (the serve path's and the 4 x
     1024 train shape's), under ``train_default`` at the launcher's default
     train shape (8 x 128), and under ``families`` at phase 7's long
-    prefills (head dims 128 and 256)."""
+    prefills (head dims 128 and 256) and phase 8's (zamba2, MHA)."""
     row = time_attention_at(dev, timer, GRANITE_ATT, 4, "main path")
     row["train_default"] = time_attention_at(dev, timer, GRANITE_TRAIN_ATT, 8, "train 8 x 128")
     row["families"] = {arch: time_attention_at(dev, timer, shape, 4, f"{arch} prefill")
@@ -825,23 +844,39 @@ def time_attention(dev, timer) -> dict:
 
 
 # ------------------------------------------------------------------- serve
+def norm_nodes(params) -> list:
+    """Every norm weight of a family's tree, as (node, key): a transformer's
+    ``ln1``, ``ln2``, ``final_norm``, then ``q_norm`` and ``k_norm`` where
+    the config has them; an SSM's ``ln`` and gated ``norm`` per layer; the
+    hybrid's also its shared block's ``ln1`` and ``ln2``."""
+    if "mamba_layers" in params:
+        layers, shared = params["mamba_layers"], params["shared"]
+        return [(layers, "ln"), (layers, "norm"), (shared, "ln1"), (shared, "ln2"),
+                (params, "final_norm")]
+    layers = params["layers"]
+    if "attn" not in layers:
+        return [(layers, "ln"), (layers, "norm"), (params, "final_norm")]
+    attn = layers["attn"]
+    return [(tree, key) for tree, key in ((layers, "ln1"), (layers, "ln2"), (params, "final_norm"),
+                                          (attn, "q_norm"), (attn, "k_norm")) if key in tree]
+
+
 def perturbed_params(cfg, dev):
     """The port's init at ``cfg`` (seed 0) with every norm weight set to
-    1 + 0.1 N(0, 1) (seed 1), ``q_norm`` and ``k_norm`` last where the
-    config has them: the init's zero norms make every logit 0."""
+    1 + 0.1 N(0, 1) (seed 1), in :func:`norm_nodes`' order: the init's zero
+    norms make every logit 0."""
     from repro_torch.models import init_params
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
-    attn = params["layers"]["attn"]
-    for tree, key in ((params["layers"], "ln1"), (params["layers"], "ln2"),
-                      (params, "final_norm"), (attn, "q_norm"), (attn, "k_norm")):
-        if key in tree:
-            tree[key] = 1.0 + 0.1 * torch.randn(tree[key].shape, generator=g, device=dev)
+    for tree, key in norm_nodes(params):
+        tree[key] = 1.0 + 0.1 * torch.randn(tree[key].shape, generator=g, device=dev)
     return params
 
 
-KERNEL_CLASSES = ("flash_attention", "matmul", "dispatch", "attention_backward", "optimizer",
-                  "compression", "other")
+KERNEL_CLASSES = ("flash_attention", "matmul", "dispatch", "ssd", "attention_backward",
+                  "optimizer", "compression", "other")
+# The port's profiler ranges (user annotations, not kernels).
+RANGES = ("adamw_update", "compress_decompress", "ssd_chunked", "flash_attention")
 # The ops of the MoE dispatch and combine (models/moe.py): the sorts, the
 # expert counts and their prefix sum, the gathers, the scatter into the
 # expert buffer and the scatter-add back to the tokens.
@@ -851,12 +886,19 @@ DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::bincount", "aten::cumsum",
 
 
 def _phase_of(event) -> str | None:
-    """The train step's phase that launched a profiled op: the flash
-    kernel's backward (autograd's node of the plain recompute), the
-    optimizer (``adamw_update``'s profiler range) or the gradient compression
-    (``compress_decompress``'s), the MoE dispatch (an op of
+    """The phase that launched a profiled op: the SSD scan (any op under
+    ``ssd_chunked``'s profiler range, its cumsum too); else the nearest of
+    the flash kernel's backward (autograd's node of the plain recompute),
+    the optimizer (``adamw_update``'s profiler range), the gradient
+    compression (``compress_decompress``'s) and the MoE dispatch (an op of
     ``DISPATCH_OPS``); None elsewhere."""
+    chain = []
     while event is not None:
+        chain.append(event)
+        event = event.cpu_parent
+    if any(e.name == "ssd_chunked" for e in chain):
+        return "ssd"
+    for event in chain:
         if event.name in DISPATCH_OPS:
             return "dispatch"
         if "_FlashAttentionBackward" in event.name:
@@ -865,7 +907,6 @@ def _phase_of(event) -> str | None:
             return "optimizer"
         if event.name == "compress_decompress":
             return "compression"
-        event = event.cpu_parent
     return None
 
 
@@ -885,7 +926,8 @@ def profile_device(label: str, fn) -> dict:
     the attention backward (every kernel of the flash kernel's
     plain-recompute backward), the optimizer (every kernel under
     ``adamw_update``), the gradient compression (every kernel under
-    ``compress_decompress``) and the rest, against the window's host-clock time
+    ``compress_decompress``), the SSD scan (every kernel under
+    ``ssd_chunked``) and the rest, against the window's host-clock time
     (ending in a synchronize). Kernels of one stream do not overlap, so
     their sum is the device's busy time. A kernel is put in a phase by the
     op that launched it; one no op launched, by its name alone, and then
@@ -902,7 +944,7 @@ def profile_device(label: str, fn) -> dict:
     groups = dict.fromkeys(KERNEL_CLASSES, 0.0)
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation \
-                and e.name not in ("adamw_update", "compress_decompress"):
+                and e.name not in RANGES:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     unplaced = dict(by_name)
     launches = dict.fromkeys(KERNEL_CLASSES, 0)
@@ -1021,33 +1063,50 @@ def compare_routings(kernel: RouteRecorder, plain: RouteRecorder, where: str) ->
 def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
     """Each cohort's prefill through the kernel (rerun on the cohort's
     tokens) against a prefill through the plain attention, swapped in here
-    and restored; the kernel rerun's greedy first tokens are the served
-    ones. For an MoE config both runs' routings are recorded: at most
+    and restored, over the logits and every cache leaf (an SSM's state and
+    conv taps too); the kernel rerun's greedy first tokens are the served
+    ones, it launches the kernel once per K/V row of its cache (per layer,
+    or per shared-block call), and the plain rerun never. An SSM without
+    attention has no plain rerun. For an MoE config both runs' routings are recorded: at most
     FLIP_SHARE of the tokens may route otherwise, each first flip at a
     near-tie (:func:`compare_routings`), and the limit holds over the tokens
     routed alike; the rerun's dropped (token, expert) pairs are counted.
     The first cohort's prefill and one decode step are also profiled into
     ``prof``."""
-    from repro_torch.kernels.attention import flash_gqa_ref
+    from repro_torch.kernels.attention import flash_attention, flash_gqa_ref
     from repro_torch.models import decode, prefill, transformer
     first = {c.request_id: c.tokens[0] for c in res.completions}
     out, rid = [], 0
     for i, toks in enumerate(res.cohort_tokens):
         tokens = torch.from_numpy(toks).to(params["embed"].device)
+        before = flash_attention.launches
         with RouteRecorder() as kernel_routes:
             logits, cache = prefill(cfg, params, {"tokens": tokens})
+        launches = {"kernel_rerun": flash_attention.launches - before}
+        kv_rows = cache["k"].shape[0] if "k" in cache else 0
+        if launches["kernel_rerun"] != kv_rows:
+            raise AssertionError(f"{label} cohort {i}: the kernel rerun launched flash "
+                                 f"{launches['kernel_rerun']} times, expected {kv_rows}")
         greedy = torch.argmax(logits[:, -1], -1).tolist()
         served = [first[rid + j] for j in range(len(toks))]
         if greedy != served:
             raise AssertionError(f"{label} cohort {i}: rerun first tokens {greedy} != served {served}")
         rid += len(toks)
-        kernel_fn = transformer.flash_gqa
-        transformer.flash_gqa = flash_gqa_ref
-        try:
-            with RouteRecorder() as plain_routes:
-                want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
-        finally:
-            transformer.flash_gqa = kernel_fn
+        if kv_rows == 0:   # no attention: nothing to swap
+            want_logits, want_cache, plain_routes = logits, cache, kernel_routes
+        else:
+            kernel_fn = transformer.flash_gqa
+            transformer.flash_gqa = flash_gqa_ref
+            before = flash_attention.launches
+            try:
+                with RouteRecorder() as plain_routes:
+                    want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
+            finally:
+                transformer.flash_gqa = kernel_fn
+            launches["plain_rerun"] = flash_attention.launches - before
+            if launches["plain_rerun"]:
+                raise AssertionError(f"{label} cohort {i}: the plain rerun launched the flash "
+                                     f"kernel {launches['plain_rerun']} times")
         routing = {}
         alike = torch.ones(toks.shape, dtype=torch.bool, device=tokens.device)
         if cfg.moe is not None:
@@ -1062,12 +1121,12 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
         rows = slice(None) if bool(alike.all()) else alike  # a view where all agree
         real, want_real = logits[..., :cfg.vocab_size], want_logits[..., :cfg.vocab_size]
         errs = {"logits": rel_err(real[rows], want_real[rows]),
-                "k": rel_err(cache["k"][:, rows], want_cache["k"][:, rows]),
-                "v": rel_err(cache["v"][:, rows], want_cache["v"][:, rows])}
+                **{name: rel_err(cache[name][:, rows], want_cache[name][:, rows])
+                   for name in cache}} if kv_rows else {}
         std = float(want_real.std())
         if not torch.equal(logits[..., cfg.vocab_size:], want_logits[..., cfg.vocab_size:]):
             raise AssertionError(f"{label} cohort {i}: padded vocabulary not masked alike")
-        if std <= 0 or not want_cache["k"].any() or not want_cache["v"].any():
+        if std <= 0 or not all(c.any() for c in want_cache.values()):
             raise AssertionError(f"{label} cohort {i}: degenerate prefill (logit std {std})")
         bad = {k: e for k, e in errs.items() if not e <= SERVE_REL}
         if bad:
@@ -1077,7 +1136,8 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
             prof[f"{label} prefill {tuple(toks.shape)}"] = profile_device(
                 f"{cfg.name} {label} prefill {tuple(toks.shape)}",
                 lambda: prefill(cfg, params, {"tokens": tokens}))
-            grown = {k: torch.cat([c, torch.zeros_like(c[:, :, :1])], 2) for k, c in cache.items()}
+            grown = {k: torch.cat([c, torch.zeros_like(c[:, :, :1])], 2) if k in ("k", "v")
+                     else c for k, c in cache.items()}
             step = torch.tensor(greedy, device=tokens.device)[:, None]
             prof[f"{label} decode step"] = profile_device(
                 f"{cfg.name} {label} decode step at position {toks.shape[1]}",
@@ -1088,10 +1148,13 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
             f"dropped by capacity, {routing['flips']} flips ({routing['flips_at_near_ties']} at "
             f"near-ties), {routing['tokens_routed_otherwise']} tokens routed otherwise "
             f"(limit {FLIP_SHARE} of {toks.size}), errors over the rest")
-        log(f"[serve] {cfg.name} {label} cohort {i} {tuple(toks.shape)}: kernel vs plain prefill "
-            f"max rel err logits {errs['logits']:.3e} k {errs['k']:.3e} v {errs['v']:.3e} "
-            f"(limit {SERVE_REL}); logit std {std:.4f}{moe_note} smi={gpu_state()}")
-        out.append(dict(shape=list(toks.shape), logit_std=std, **errs, **routing))
+        compared = "no attention, no plain rerun" if not errs else (
+            "kernel vs plain prefill max rel err "
+            + " ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (limit {SERVE_REL})")
+        log(f"[serve] {cfg.name} {label} cohort {i} {tuple(toks.shape)}: {compared}; flash launches "
+            f"{launches}; logit std {std:.4f}{moe_note} smi={gpu_state()}")
+        out.append(dict(shape=list(toks.shape), logit_std=std, flash_launches=launches,
+                        **errs, **routing))
         del logits, cache, want_logits, want_cache
     return out
 
@@ -1155,32 +1218,225 @@ def check_moe_layer(cfg, params, tokens) -> dict:
     return out
 
 
+# Phase 8. Decode against the chunked form: every served position's logits
+# (the prefill's last, then each decode step's) against a teacher-forced
+# ``forward`` over the cohort's prompts and served tokens, max |decode -
+# forward| <= SERVE_REL x max |forward| over the real vocabulary; the
+# recurrence and the chunked SSD differ by float32 rounding through 38-48
+# layers, a wrong state by the order of the values. The served token must
+# be the forward's argmax, or its logit within that limit of the argmax's
+# (a tie to rounding, counted). Two chunkings of one SSD input (chunk 256
+# against chunk 1, the 1024-step recurrence): max |diff| <= SSD_CHUNK_REL x
+# max |chunk-1 value|, for the output and the final state. One Mamba2 block
+# on the card against the CPU from one input: |card - cpu| <= SSM_LAYER_TOL
+# + SSM_LAYER_TOL |cpu| elementwise (float32 in other summation orders).
+SSD_CHUNK_REL = 1e-4
+SSM_LAYER_TOL = 1e-4
+
+
+class _Captured(Exception):
+    """Stops a prefill once the wrapped call has been captured."""
+
+
+def first_call_args(module, name: str, run) -> tuple:
+    """The arguments (tensors detached and copied) of the first call of
+    ``module.name`` in ``run()``, which is stopped right there."""
+    fn, got = getattr(module, name), []
+
+    def capture(*args, **kwargs):
+        got.extend(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+        raise _Captured
+
+    setattr(module, name, capture)
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        setattr(module, name, fn)
+    if not got:
+        raise AssertionError(f"{name} was never called")
+    return tuple(got)
+
+
+def check_decode_against_forward(cfg, params, label, res, recorded) -> dict:
+    """Each cohort's served logits (``recorded``, per cohort the prefill's
+    last position and each decode step's) against ``forward`` over its
+    prompts and served tokens; raises on a miss (the limits above)."""
+    from repro_torch.models import forward
+    served = {c.request_id: c.tokens for c in res.completions}
+    dev = params["embed"].device
+    worst, ties, rid, positions = 0.0, 0, 0, 0
+    t0 = time.perf_counter()
+    for i, toks in enumerate(res.cohort_tokens):
+        B, S0 = toks.shape
+        gen = torch.tensor([served[rid + j] for j in range(B)], dtype=torch.int64, device=dev)
+        rid += B
+        full = torch.cat([torch.from_numpy(toks).to(dev).long(), gen[:, :-1]], 1)
+        fwd = forward(cfg, params, {"tokens": full}, remat="none")[:, S0 - 1:, :cfg.vocab_size]
+        got = torch.stack(recorded[i], 1)[..., :cfg.vocab_size]
+        if got.shape != fwd.shape:
+            raise AssertionError(f"{label} cohort {i}: {tuple(got.shape)} served logits against "
+                                 f"{tuple(fwd.shape)} of the forward")
+        scale = float(fwd.abs().max())
+        err = float((got - fwd).abs().max()) / scale
+        top = fwd.max(-1)
+        at_served = fwd.gather(-1, gen[..., None])[..., 0]
+        is_max = top.indices == gen
+        tie = (top.values - at_served) <= SERVE_REL * scale
+        if not err <= SERVE_REL or not bool((is_max | tie).all()):
+            raise AssertionError(f"{cfg.name} {label} cohort {i}: decode against the forward: "
+                                 f"max rel err {err:.3e} (limit {SERVE_REL}), "
+                                 f"{int((~(is_max | tie)).sum())} served tokens not the argmax")
+        worst = max(worst, err)
+        ties += int((~is_max).sum())
+        positions += gen.numel()
+        del fwd, got
+    out = {"max_rel_err": worst, "positions": positions, "ties": ties,
+           "seconds": time.perf_counter() - t0}
+    log(f"[serve] {cfg.name} {label}: decode against the teacher-forced forward at "
+        f"{positions} served positions: max rel err {worst:.3e} (limit {SERVE_REL}), served "
+        f"token the forward's argmax at all but {ties} (ties within the limit) in "
+        f"{out['seconds']:.2f} s smi={gpu_state()}")
+    return out
+
+
+def check_ssd_chunks(cfg, params, tokens) -> dict:
+    """``ssd_chunked`` on the first layer's input of a prefill of ``tokens``
+    (the 1024-token cohort) at the config's chunk and at chunk 1, each
+    profiled once (device busy time and idle share: at chunk 1 the host
+    enqueues a launch a chunk, longer than CUDA events can bracket); raises
+    beyond SSD_CHUNK_REL."""
+    from repro_torch.models import mamba2, prefill
+    args = first_call_args(mamba2, "ssd_chunked",
+                           lambda: prefill(cfg, params, {"tokens": tokens}))
+    inputs, S = args[:6], args[0].shape[1]
+    runs = {c: mamba2.ssd_chunked(*inputs, c, return_final_state=True)
+            for c in (cfg.ssm.chunk, 1)}
+    (y, state), (y1, state1) = runs[cfg.ssm.chunk], runs[1]
+    errs = {"y": rel_err(y, y1), "state": rel_err(state, state1)}
+    if not all(e <= SSD_CHUNK_REL for e in errs.values()):
+        raise AssertionError(f"{cfg.name}: ssd_chunked at chunk {cfg.ssm.chunk} against chunk 1: "
+                             f"{errs} beyond {SSD_CHUNK_REL}")
+    out = {"shape": list(inputs[0].shape), "state_dim": int(inputs[3].shape[-1]), **errs,
+           "q": mamba2.chunk_len(S, cfg.ssm.chunk)}
+    for chunk in (cfg.ssm.chunk, 1):
+        out[f"profile_chunk_{chunk}"] = profile_device(
+            f"{cfg.name} ssd_chunked {tuple(inputs[0].shape)} at chunk {chunk}",
+            lambda: mamba2.ssd_chunked(*inputs, chunk))
+    log(f"[serve] {cfg.name} ssd_chunked on layer 0's input {tuple(inputs[0].shape)} (B, S, H, "
+        f"P), N {out['state_dim']}: chunk {cfg.ssm.chunk} (Q {out['q']}) against chunk 1 (Q 1): "
+        f"max rel err y {errs['y']:.3e} state {errs['state']:.3e} (limit {SSD_CHUNK_REL}) "
+        f"smi={gpu_state()}")
+    return out
+
+
+def check_mamba_layer(cfg, params, tokens) -> dict:
+    """One Mamba2 block (layer 0's weights) at a long cohort's shape on the
+    card against the same block on the CPU, from layer 0's input in a
+    prefill of ``tokens``; raises beyond SSM_LAYER_TOL."""
+    from repro_torch.models import mamba2, prefill, transformer
+    _, _, u = first_call_args(mamba2, "mamba_block",
+                              lambda: prefill(cfg, params, {"tokens": tokens}))
+    layers = params["mamba_layers"] if "mamba_layers" in params else params["layers"]
+    layer0 = transformer.layer_params(layers, 0)
+    t0 = time.perf_counter()
+    y = mamba2.mamba_block(cfg, layer0, u).cpu()
+    want = mamba2.mamba_block(cfg, {k: v.cpu() for k, v in layer0.items()}, u.cpu())
+    diff = (y - want).abs()
+    bad = ~(diff <= SSM_LAYER_TOL + SSM_LAYER_TOL * want.abs())
+    if bad.any() or not float(want.abs().max()) > 0:
+        raise AssertionError(f"{cfg.name} Mamba2 layer: {int(bad.sum())} elements beyond "
+                             f"{SSM_LAYER_TOL}, max |diff| {float(diff.max())}")
+    out = {"shape": list(u.shape), "max_abs_err": float(diff.max()),
+           "max_abs_cpu": float(want.abs().max()), "seconds": time.perf_counter() - t0}
+    log(f"[serve] {cfg.name} Mamba2 layer 0 on {tuple(u.shape)}, card against CPU: max |diff| "
+        f"{out['max_abs_err']:.3e} (limit {SSM_LAYER_TOL} + {SSM_LAYER_TOL} |cpu|, max |cpu| "
+        f"{out['max_abs_cpu']:.3f}) in {out['seconds']:.2f} s smi={gpu_state()}")
+    return out
+
+
+def describe(cfg) -> str:
+    """A config's shape, as a ``[serve]`` line gives it."""
+    from repro_torch.models.mamba2 import ssm_dims
+    head = f"{cfg.num_layers} layers, d_model {cfg.d_model}"
+    if cfg.ssm is not None:
+        d_inner, H, P, N, conv_ch = ssm_dims(cfg)
+        head += (f", Mamba2 d_inner {d_inner}, {H} SSM heads of {P}, state {N}, "
+                 f"{cfg.ssm.ngroups} group(s), conv width {cfg.ssm.conv_width} over {conv_ch} "
+                 f"channels, chunk {cfg.ssm.chunk}")
+    if cfg.hybrid is not None:
+        head += (f"; a shared block after every {cfg.hybrid.shared_every} layers at width "
+                 f"{2 * cfg.d_model}")
+    if cfg.num_heads:
+        ffn = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, "
+               f"capacity factor {cfg.moe.capacity_factor}" if cfg.moe else f"d_ff {cfg.d_ff}")
+        padded = f" padded to {cfg.eff_heads}" if cfg.eff_heads != cfg.num_heads else ""
+        head += (f", heads {cfg.num_heads}{padded}/{cfg.eff_kv}, head_dim "
+                 f"{cfg.resolved_head_dim}, {ffn}, {cfg.activation}")
+    return f"{head}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab})"
+
+
+class LogitRecorder:
+    """While active, keeps the logits the served path produces, cohort by
+    cohort: the prefill's last position (a copy) and every decode step's,
+    each (B, V), by wrapping the model calls of ``repro_torch.launch.serve``."""
+
+    def __enter__(self):
+        from repro_torch.launch import serve as launch_serve
+        self._mod = launch_serve
+        self._prefill, self._decode = launch_serve.prefill, launch_serve.decode
+        self.cohorts = []
+
+        def prefill(cfg, params, batch):
+            logits, cache = self._prefill(cfg, params, batch)
+            self.cohorts.append([logits[:, -1].clone()])
+            return logits, cache
+
+        def decode(cfg, params, cache, tokens, position):
+            logits, cache = self._decode(cfg, params, cache, tokens, position)
+            self.cohorts[-1].append(logits[:, -1])
+            return logits, cache
+
+        launch_serve.prefill, launch_serve.decode = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.prefill, self._mod.decode = self._prefill, self._decode
+
+
 def phase_serve(dev, cfg, wrappers) -> dict:
     """Serve the launcher's default request set and a long-prompt set through
-    ``serve()``; the flash launches are counted over these two runs alone."""
+    ``serve()`` (for an SSM family also ``b2_exact_1024``, whose cohort
+    length is a multiple of the SSD chunk); the flash launches are counted
+    over these runs alone."""
     from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models.mamba2 import chunk_len
     t0 = time.perf_counter()
     params = perturbed_params(cfg, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
-    ffn = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, "
-           f"capacity factor {cfg.moe.capacity_factor}" if cfg.moe else f"d_ff {cfg.d_ff}")
-    padded = f" padded to {cfg.eff_heads}" if cfg.eff_heads != cfg.num_heads else ""
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}{padded}/{cfg.eff_kv}, head_dim "
-        f"{cfg.resolved_head_dim}, {ffn}, {cfg.activation}, vocab {cfg.vocab_size} (padded "
-        f"{cfg.padded_vocab}); {n_params} float32 parameters made in "
+    log(f"[serve] {cfg.name}: {describe(cfg)}; {n_params} float32 parameters made in "
         f"{time.perf_counter() - t0:.2f} s smi={gpu_state()}")
     sets = {
         "a_defaults": (make_requests(cfg, 8, 12, 8), 4),
         "b_long_prompts": (make_requests(cfg, 4, 1024, 8, min_len=900, seed=1), 4),
     }
+    if cfg.ssm is not None:
+        sets["b2_exact_1024"] = (make_requests(cfg, 4, 1024, 8, min_len=1024, seed=1), 4)
     serve(cfg, params, make_requests(cfg, 1, 4, 2, seed=2), 1, dev)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
-    results = {label: serve(cfg, params, reqs, bs, dev) for label, (reqs, bs) in sets.items()}
+    results, recorded = {}, {}
+    for label, (reqs, bs) in sets.items():
+        if cfg.ssm is None:
+            results[label] = serve(cfg, params, reqs, bs, dev)
+            continue
+        with LogitRecorder() as rec:
+            results[label] = serve(cfg, params, reqs, bs, dev)
+        recorded[label] = rec.cohorts
     launches = {k: w.launches for k, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     out = {"launches": launches, "max_memory_allocated": peak, "sets": {}}
@@ -1195,9 +1451,15 @@ def phase_serve(dev, cfg, wrappers) -> dict:
                "prefill_ms": [s * 1e3 for s in res.prefill_s],
                "decode_ms": [s * 1e3 for s in res.decode_s],
                "prompt_lens": [c.shape[1] for c in res.cohort_tokens]}
+        ssd = ""
+        if cfg.ssm is not None:
+            row["ssd_q_nc"] = [(chunk_len(n, cfg.ssm.chunk), n // chunk_len(n, cfg.ssm.chunk))
+                               for n in row["prompt_lens"]]
+            ssd = f" (SSD chunk Q, chunks nc per cohort {row['ssd_q_nc']})"
         log(f"[serve] {cfg.name} {label}: {row['requests']} requests, {row['tokens']} tokens in "
             f"{row['seconds']:.4f} s ({row['tokens_per_s']:.3f} tok/s); cohorts padded to "
-            f"{row['prompt_lens']}; prefill ms per cohort {[round(x, 3) for x in row['prefill_ms']]}; "
+            f"{row['prompt_lens']}{ssd}; prefill ms per cohort "
+            f"{[round(x, 3) for x in row['prefill_ms']]}; "
             f"decode ms per step median {statistics.median(row['decode_ms']):.3f} "
             f"(min {min(row['decode_ms']):.3f}, max {max(row['decode_ms']):.3f}, "
             f"{len(row['decode_ms'])} steps) smi={gpu_state()}")
@@ -1212,6 +1474,15 @@ def phase_serve(dev, cfg, wrappers) -> dict:
     if cfg.moe is not None:
         long_cohort = results["b_long_prompts"].cohort_tokens[0]
         out["moe_layer"] = check_moe_layer(cfg, params, torch.from_numpy(long_cohort).to(dev))
+    if cfg.ssm is not None:
+        for label, res in results.items():
+            out["sets"][label]["decode_vs_forward"] = check_decode_against_forward(
+                cfg, params, label, res, recorded[label])
+        del recorded
+        cohort = {label: torch.from_numpy(results[label].cohort_tokens[0]).to(dev)
+                  for label in ("b_long_prompts", "b2_exact_1024")}
+        out["ssd_chunks"] = check_ssd_chunks(cfg, params, cohort["b2_exact_1024"])
+        out["mamba_layer"] = check_mamba_layer(cfg, params, cohort["b_long_prompts"])
     del params, results
     torch.cuda.empty_cache()
     return out
@@ -1232,6 +1503,30 @@ def phase_families(dev, wrappers) -> dict:
         cfg = get_config(arch)
         run = phase_serve(dev, cfg, wrappers)
         expected = sum(len(r["cohorts"]) for r in run["sets"].values()) * cfg.num_layers
+        if run["launches"]["flash_attention"] != expected:
+            raise AssertionError(f"{arch}: flash_attention launched "
+                                 f"{run['launches']['flash_attention']} times on the served "
+                                 f"path, expected {expected}")
+        out[arch] = run
+    return out
+
+
+SSM_ARCHS = ("mamba2-780m", "zamba2-1.2b")
+
+
+def phase_ssm(dev, wrappers) -> dict:
+    """Phase 8: mamba2-780m and zamba2-1.2b at full width and depth, one
+    model on the card at a time, serve phase 4's request sets and
+    ``b2_exact_1024`` through ``serve()``; zamba2 launches the flash kernel
+    once per shared-block call per cohort, mamba2 never."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import hybrid_structure
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        run = phase_serve(dev, cfg, wrappers)
+        per_cohort = hybrid_structure(cfg)[0] if cfg.hybrid is not None else 0
+        expected = sum(len(r["cohorts"]) for r in run["sets"].values()) * per_cohort
         if run["launches"]["flash_attention"] != expected:
             raise AssertionError(f"{arch}: flash_attention launched "
                                  f"{run['launches']['flash_attention']} times on the served "
@@ -1807,6 +2102,9 @@ def main(argv=None) -> int:
     families_out = phase_families(dev, wrappers)
     flash_paths.update({f"serve_{arch}": r["launches"]["flash_attention"]
                         for arch, r in families_out.items()})
+    ssm_out = phase_ssm(dev, wrappers)
+    flash_paths.update({f"serve_{arch}": r["launches"]["flash_attention"]
+                        for arch, r in ssm_out.items()})
     launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
@@ -1844,7 +2142,7 @@ def main(argv=None) -> int:
                                                        "library_ms", "bound_ms")})
         report.append(row)
     phases = {"slice": slice_out, "serve": serve_out, "train": train_out,
-              "gateway": gateway_out, "families": families_out}
+              "gateway": gateway_out, "families": families_out, "ssm": ssm_out}
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
         f"phases={json.dumps(phases)}")
     print(json.dumps({"kernels": report}))

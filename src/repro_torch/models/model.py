@@ -1,12 +1,12 @@
-"""Unified model API for the dense, MoE and VLM families: the port of
-:mod:`repro.models.model`'s ``init_params``, ``param_shapes``, ``forward``,
-``loss_fn``, ``prefill``, ``decode`` and ``init_cache``.
+"""Unified model API for the dense, MoE, VLM, SSM and hybrid families: the
+port of :mod:`repro.models.model`'s ``init_params``, ``param_shapes``,
+``forward``, ``loss_fn``, ``prefill``, ``decode`` and ``init_cache``.
 
 Batch dicts are the JAX package's: ``{"tokens": (B, S), "labels": (B, S)}``,
 and for ``vlm`` also ``{"patch_embeds": (B, P, D)}``, which go in front of
 the text, so that its logits cover ``P + S`` positions and its loss the text
-positions only. The other families (``ssm``, ``hybrid``, ``audio``) raise
-``NotImplementedError`` naming their ROADMAP item.
+positions only. The ``audio`` family raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,16 +15,14 @@ from typing import Any
 import torch
 
 from ..configs.base import ArchConfig
-from . import transformer
+from . import hybrid, mamba2, transformer
 from .layers import softmax_cross_entropy
 
 Params = dict[str, Any]
 
-FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 _TODO = {
-    "ssm": "the ssm family is not ported yet (ROADMAP item 8, models/mamba2.py)",
-    "hybrid": "the hybrid family is not ported yet (ROADMAP item 8, models/hybrid.py)",
     "audio": "the audio family is not ported yet (ROADMAP item 8, models/encdec.py)",
 }
 
@@ -41,6 +39,10 @@ def _extra_embeds(cfg: ArchConfig, batch: dict):
 def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 dtype=torch.float32, device=None) -> Params:
     _ported(cfg)
+    if cfg.family == "ssm":
+        return mamba2.init_mamba_params(cfg, generator, dtype, device)
+    if cfg.family == "hybrid":
+        return hybrid.init_hybrid_params(cfg, generator, dtype, device)
     return transformer.init_transformer_params(cfg, generator, dtype, device)
 
 
@@ -55,6 +57,10 @@ def forward(cfg: ArchConfig, params: Params, batch: dict, *,
     """``batch["tokens"]`` (B, S) -> logits (B, S, V); (B, P + S, V) for
     ``vlm``."""
     _ported(cfg)
+    if cfg.family == "ssm":
+        return mamba2.mamba_forward(cfg, params, batch["tokens"], remat=remat)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_forward(cfg, params, batch["tokens"], remat=remat)
     return transformer.transformer_forward(cfg, params, batch["tokens"],
                                            extra_embeds=_extra_embeds(cfg, batch),
                                            remat=remat)
@@ -74,10 +80,18 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: dict, *,
 
 
 def prefill(cfg: ArchConfig, params: Params, batch: dict):
-    """``batch["tokens"]`` (B, S) -> (logits (B, S, V), cache of (L, B, S,
-    KV, hd) ``k`` and ``v``); ``P + S`` positions for ``vlm``. Nothing is
-    recomputed: serving takes no gradient."""
+    """``batch["tokens"]`` (B, S) -> (logits, cache). The cache holds (L, B,
+    S, KV, hd) ``k`` and ``v`` for the attention families (``P + S``
+    positions for ``vlm``), the (L, B, H, P, N) ``state`` and (L, B, W - 1,
+    C) ``conv`` for ``ssm``, and both for ``hybrid``, whose ``k`` and ``v``
+    have one row per shared-block call. Nothing is recomputed: serving takes
+    no gradient."""
     _ported(cfg)
+    if cfg.family == "ssm":
+        return mamba2.mamba_prefill(cfg, params, batch["tokens"])
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_forward(cfg, params, batch["tokens"], remat="none",
+                                     collect_cache=True)
     return transformer.transformer_forward(cfg, params, batch["tokens"],
                                            extra_embeds=_extra_embeds(cfg, batch),
                                            remat="none", collect_cache=True)
@@ -86,10 +100,20 @@ def prefill(cfg: ArchConfig, params: Params, batch: dict):
 def decode(cfg: ArchConfig, params: Params, cache: Params, tokens: torch.Tensor,
            position: int):
     _ported(cfg)
+    if cfg.family == "ssm":
+        return mamba2.mamba_decode(cfg, params, cache, tokens, position)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_decode(cfg, params, cache, tokens, position)
     return transformer.transformer_decode(cfg, params, cache, tokens, position)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Params:
+    """Zeros of the decode cache; an SSM state is float32 whatever
+    ``dtype``."""
     _ported(cfg)
+    if cfg.family == "ssm":
+        return mamba2.init_mamba_cache(cfg, batch, dtype, device)
+    if cfg.family == "hybrid":
+        return hybrid.init_hybrid_cache(cfg, batch, max_len, dtype, device)
     return transformer.init_cache(cfg, batch, max_len, dtype, device)

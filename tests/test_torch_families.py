@@ -1,11 +1,13 @@
-"""The port's dense, MoE and VLM configs against the JAX package's, on the
-CPU: every config of those families but granite-3-2b (which
-``test_torch_serve.py`` and ``test_torch_train.py`` hold).
+"""The port's dense, MoE, VLM, SSM and hybrid configs against the JAX
+package's, on the CPU: every config of those families but granite-3-2b
+(which ``test_torch_serve.py`` and ``test_torch_train.py`` hold);
+``test_torch_ssm.py`` holds the SSD scan and the SSM serving paths besides.
 
 Each reduced config takes the JAX ``init_params`` tree with every norm
-weight (``ln1``, ``ln2``, ``final_norm``, and ``q_norm``/``k_norm`` where
-the config has them) set to ``1 + 0.1 N(0, 1)`` from a numpy seed: the JAX
-init's zero norms make every logit 0 (ROADMAP.md, faults of the
+weight (``ln1``, ``ln2``, ``final_norm``, ``q_norm``/``k_norm`` where the
+config has them; an SSM layer's ``ln`` and gated ``norm``; the hybrid's
+shared ``ln1``/``ln2``) set to ``1 + 0.1 N(0, 1)`` from a numpy seed: the
+JAX init's zero norms make every logit 0 (ROADMAP.md, faults of the
 reference). The internvl2 batch adds ``patch_embeds`` (B, 4, 64): its
 logits cover ``4 + S`` positions and its loss the text only.
 
@@ -20,6 +22,7 @@ only where its routing is JAX's: two routings of one token can differ only
 where two experts' probabilities tie to rounding, and none does here.
 """
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -38,6 +41,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import loss_fn as jax_loss_fn
 from repro.models import param_shapes as jax_param_shapes
 from repro.models import prefill as jax_prefill
+from repro.models import mamba2 as jmamba2
 from repro.models import transformer as jtransformer
 from repro.serving import Batcher as JaxBatcher
 from repro.serving import Request as JaxRequest
@@ -63,7 +67,8 @@ ROOT = Path(__file__).resolve().parents[1]
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-4, atol=2e-4)
 ARCHS = ("gemma-2b", "deepseek-67b", "deepseek-coder-33b", "olmoe-1b-7b",
-         "llama4-scout-17b-a16e", "internvl2-76b")
+         "llama4-scout-17b-a16e", "internvl2-76b", "mamba2-780m", "zamba2-1.2b")
+KV_KEYS = ("k", "v")   # the cache leaves that grow with the sequence
 B, S, EXTRA = 2, 12, 4
 ONE_STEP = dict(OPT, warmup_steps=0)   # the full learning rate at step 0
 
@@ -74,11 +79,21 @@ def _cfgs(arch):
     return jcfg, tcfg
 
 
-def _perturb_norms(params, rng):
+def _norm_nodes(params):
+    """Every norm weight of a family's tree, as (node, key)."""
+    if "mamba_layers" in params:                     # hybrid
+        layers, shared = params["mamba_layers"], params["shared"]
+        return [(layers, "ln"), (layers, "norm"), (shared, "ln1"), (shared, "ln2"),
+                (params, "final_norm")]
     layers = params["layers"]
+    if "attn" not in layers:                         # ssm
+        return [(layers, "ln"), (layers, "norm"), (params, "final_norm")]
     nodes = [(layers, "ln1"), (layers, "ln2"), (params, "final_norm")]
-    nodes += [(layers["attn"], k) for k in ("q_norm", "k_norm") if k in layers["attn"]]
-    for node, key in nodes:
+    return nodes + [(layers["attn"], k) for k in ("q_norm", "k_norm") if k in layers["attn"]]
+
+
+def _perturb_norms(params, rng):
+    for node, key in _norm_nodes(params):
         node[key] = (1.0 + 0.1 * rng.standard_normal(node[key].shape)).astype(np.float32)
 
 
@@ -157,7 +172,8 @@ def test_embed_tokens_scale_is_rounded_like_jax(dtype):
 
 # ---------------------------------------------------------------- shapes
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e", "gemma-2b",
+                                  "mamba2-780m", "zamba2-1.2b"])
 def test_param_shapes_match_jax_at_full_size(arch):
     """Names, shapes and dtypes leaf for leaf on the meta device, at full
     size; an MoE router stays float32 under bf16, in the parameters and in
@@ -228,6 +244,44 @@ def _numpy_state(arch, param_dtype="float32"):
     return tree
 
 
+def jax_ssd_chunked_masked(x, dt, A, B_, C_, D_skip, chunk, return_final_state=False):
+    """The JAX package's ``ssd_chunked`` (``repro/models/mamba2.py:87-149``)
+    with its causal mask applied before the ``exp`` of the segment sums, as
+    the port applies it. The values are the same; the JAX package's
+    ``where(causal, exp(seg), 0)`` has a NaN gradient wherever a masked
+    ``exp`` overflows to inf (ROADMAP.md, faults of the reference), and the
+    port's train step is held to this one."""
+    Bb, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Q = math.gcd(S, chunk) if S % chunk else chunk
+    nc, hpg = S // Q, H // G
+    xf = x.astype(jnp.float32).reshape(Bb, nc, Q, H, P)
+    dtc = dt.reshape(Bb, nc, Q, H)
+    Bc = B_.astype(jnp.float32).reshape(Bb, nc, Q, G, N)
+    Cc = C_.astype(jnp.float32).reshape(Bb, nc, Q, G, N)
+    dAcum = jnp.cumsum(dtc * A[None, None, None, :], axis=2)
+    seg = dAcum[:, :, :, None, :] - dAcum[:, :, None, :, :]
+    causal = jnp.tril(jnp.ones((Q, Q), bool))[None, None, :, :, None]
+    Lmat = jnp.exp(jnp.where(causal, seg, -jnp.inf))
+    CB = jnp.repeat(jnp.einsum("bclgn,bcsgn->bclsg", Cc, Bc), hpg, axis=-1)
+    y_diag = jnp.einsum("bclsh,bcshp->bclhp", CB * Lmat * dtc[:, :, None, :, :], xf)
+    decay_end = jnp.exp(dAcum[:, :, -1:, :] - dAcum)
+    Bx = jnp.einsum("bcsgn,bcsh,bcshp->bchpn", Bc, decay_end * dtc, xf)
+
+    def step(state, inputs):
+        dec, bx = inputs
+        return state * dec[..., None, None] + bx, state
+
+    final_state, states_in = jax.lax.scan(
+        step, jnp.zeros((Bb, H, P, N), jnp.float32),
+        (jnp.moveaxis(jnp.exp(dAcum[:, :, -1, :]), 1, 0), jnp.moveaxis(Bx, 1, 0)))
+    y_off = jnp.einsum("bclhn,bclh,bchpn->bclhp", jnp.repeat(Cc, hpg, axis=-2),
+                       jnp.exp(dAcum), jnp.moveaxis(states_in, 0, 1))
+    y = (y_diag + y_off + xf * D_skip[None, None, None, :, None]).reshape(Bb, S, H, P)
+    y = y.astype(x.dtype)
+    return (y, final_state) if return_final_state else y
+
+
 def _jax_step(jcfg, tree, batch, **kw):
     step = jax.jit(jax_make_train_step(jcfg, JaxTrainConfig(
         optimizer=JaxOptimizerConfig(**ONE_STEP), remat="none", **kw)))
@@ -236,10 +290,15 @@ def _jax_step(jcfg, tree, batch, **kw):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_matches_jax(arch):
+def test_train_step_matches_jax(arch, monkeypatch):
+    """One step against JAX's; an SSM's against JAX's with the SSD's mask
+    before its ``exp`` (:func:`jax_ssd_chunked_masked`): JAX's own gradient
+    is NaN at zamba2's batch here (``test_torch_ssm.py`` pins that)."""
     jcfg, tcfg = _cfgs(arch)
     tree = _numpy_state(arch)
     batch = numpy_batch(jcfg, seed=13)
+    if jcfg.ssm is not None:
+        monkeypatch.setattr(jmamba2, "ssd_chunked", jax_ssd_chunked_masked)
     want_state, want = _jax_step(jcfg, tree, batch)
     step = make_train_step(tcfg, TrainConfig(optimizer=OptimizerConfig(**ONE_STEP),
                                              remat="none"))
@@ -377,10 +436,13 @@ def test_moe_checkpoint_restores_in_both_packages(tmp_path):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_jax_and_the_forward(arch, monkeypatch):
-    """Prefill, then four decode steps on caches grown by four slots, fed
-    the tokens of a longer sequence: against JAX's prefill and decode, and
-    the last logits against the port's own forward over the whole sequence
-    (as ``test_attention_decode_matches_forward``). The prefill and the
+    """Prefill, then four decode steps on caches whose k and v grew by four
+    slots, fed the tokens of a longer sequence: against JAX's prefill and
+    decode (every cache leaf: an SSM's state and conv taps too), and the
+    last logits against the port's own forward over the whole sequence (as
+    ``test_attention_decode_matches_forward`` and
+    ``test_ssm_decode_matches_forward``: the recurrent and the chunked form
+    of the SSD agree). The prefill and the
     forward route their MoE tokens as one group each and a decode step its
     batch as another, so the three agree only where no capacity drops a
     pair: the check against the forward runs the config at a capacity
@@ -398,22 +460,26 @@ def test_prefill_and_decode_match_jax_and_the_forward(arch, monkeypatch):
     assert tl.shape == (1, P + S, jcfg.padded_vocab)
     assert np.asarray(jl)[..., :jcfg.vocab_size].std() > 0.1
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL_TOL)
-    for name in ("k", "v"):
+    kv_rows = jcfg.num_layers if jcfg.hybrid is None else jcfg.num_layers // jcfg.hybrid.shared_every
+    want_keys = {"ssm": {"state", "conv"}, "hybrid": {"state", "conv", "k", "v"}}
+    assert set(tc) == set(jc) == want_keys.get(jcfg.family, set(KV_KEYS))
+    for name in jc:
         want = np.asarray(jc[name])
-        assert tc[name].shape == want.shape == (jcfg.num_layers, 1, P + S, jcfg.eff_kv,
-                                                jcfg.resolved_head_dim)
+        assert tc[name].shape == want.shape and tc[name].dtype == torch.float32
+        if name in KV_KEYS:
+            assert want.shape == (kv_rows, 1, P + S, jcfg.eff_kv, jcfg.resolved_head_dim)
         assert np.abs(want).max() > 0.1
         np.testing.assert_allclose(tc[name].numpy(), want, **MODEL_TOL)
 
     pad = [(0, 0), (0, 0), (0, EXTRA), (0, 0), (0, 0)]
-    jc = {k: jnp.pad(v, pad) for k, v in jc.items()}
+    jc = {k: jnp.pad(v, pad) if k in KV_KEYS else v for k, v in jc.items()}
     tc = {k: torch.from_numpy(np.array(v)) for k, v in jc.items()}
     for i in range(S, S + EXTRA):
         tok = full["tokens"][:, i:i + 1]
         jl1, jc = jax_decode(jcfg, jparams, jc, jnp.asarray(tok), jnp.int32(P + i))
         tl1, tc = decode(tcfg, tparams, tc, torch.from_numpy(tok), P + i)
         np.testing.assert_allclose(tl1.numpy(), np.asarray(jl1), **MODEL_TOL)
-        for name in ("k", "v"):
+        for name in jc:
             np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]), **MODEL_TOL)
 
     if tcfg.moe is not None:
@@ -421,7 +487,8 @@ def test_prefill_and_decode_match_jax_and_the_forward(arch, monkeypatch):
             tcfg.moe, capacity_factor=tcfg.moe.num_experts / tcfg.moe.top_k))
     routes = _RecordRoutes(monkeypatch)
     _, tc = prefill(tcfg, tparams, _torch(head))
-    tc = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, EXTRA)) for k, v in tc.items()}
+    tc = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, EXTRA)) if k in KV_KEYS else v
+          for k, v in tc.items()}
     for i in range(S, S + EXTRA):
         tl1, tc = decode(tcfg, tparams, tc, torch.from_numpy(full["tokens"][:, i:i + 1]), P + i)
     whole = forward(tcfg, tparams, _torch(full), remat="none")
@@ -447,7 +514,7 @@ def _jax_completions(jcfg, tree, requests, batch_size):
     return [(c.request_id, c.tokens) for c in jb.run()]
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-2b", "mamba2-780m", "zamba2-1.2b"])
 def test_serve_gives_the_jax_greedy_tokens(arch):
     jcfg, tcfg = _cfgs(arch)
     tree = numpy_params(arch)
@@ -479,7 +546,7 @@ def _run_blocked(tmp_path, *argv):
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-2b", "mamba2-780m", "zamba2-1.2b"])
 def test_launchers_run_the_family_on_cpu_without_jax_or_repro(arch, tmp_path):
     out = _run_blocked(tmp_path, "repro_torch.launch.serve", "--arch", arch, "--reduced",
                        "--device", "cpu")

@@ -6,6 +6,8 @@ file imports no JAX, so it also runs on a machine with the card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -582,17 +584,29 @@ def test_reduced_compressed_train_steps_on_the_card_match_the_cpu(cuda):
             assert float(((g - w).abs() > 1e-3 * scale).float().mean()) <= 0.01, name
 
 
+def _norm_nodes(params):
+    """Every norm weight of a family's tree, as (node, key)."""
+    if "mamba_layers" in params:                     # hybrid
+        layers, shared = params["mamba_layers"], params["shared"]
+        return [(layers, "ln"), (layers, "norm"), (shared, "ln1"), (shared, "ln2"),
+                (params, "final_norm")]
+    layers = params["layers"]
+    if "attn" not in layers:                         # ssm
+        return [(layers, "ln"), (layers, "norm"), (params, "final_norm")]
+    nodes = [(layers, "ln1"), (layers, "ln2"), (params, "final_norm")]
+    return nodes + [(layers["attn"], k) for k in ("q_norm", "k_norm") if k in layers["attn"]]
+
+
 def _perturbed_family_params(cfg, device):
     """``cfg``'s params drawn on the CPU (seed 0) with every norm weight
-    (``q_norm``/``k_norm`` too) set to 1 + 0.1 N(0, 1) (seed 1), on ``device``."""
+    (``q_norm``/``k_norm``, an SSM's ``ln`` and gated ``norm``, the hybrid's
+    shared ``ln1``/``ln2`` too) set to 1 + 0.1 N(0, 1) (seed 1), on
+    ``device``."""
     from repro_torch.models import init_params
 
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     g = torch.Generator().manual_seed(1)
-    layers = params["layers"]
-    nodes = [(layers, "ln1"), (layers, "ln2"), (params, "final_norm")]
-    nodes += [(layers["attn"], k) for k in ("q_norm", "k_norm") if k in layers["attn"]]
-    for node, key in nodes:
+    for node, key in _norm_nodes(params):
         node[key] = 1 + 0.1 * torch.randn(node[key].shape, generator=g)
     return _map(lambda t: t.to(device), params)
 
@@ -651,3 +665,62 @@ def test_launchers_run_the_family_on_the_card(cuda, arch, tmp_path, capsys):
     assert [h["step"] for h in history] == [1, 2]
     assert all(np.isfinite(h["loss"]) for h in history)
     assert (tmp_path / arch / "ckpt_00000002.thallus").exists()
+
+
+def _ssd_inputs(device, S, B=2, H=8, P=64, N=128, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.linspace(0.0, math.log(16.0), H))
+    Bm, Cm = torch.randn(B, S, 1, N, generator=g), torch.randn(B, S, 1, N, generator=g)
+    D = torch.randn(H, generator=g)
+    return [t.to(device) for t in (x, dt, A, Bm, Cm, D)]
+
+
+@pytest.mark.parametrize("chunk", [256, 1])
+def test_ssd_chunked_on_the_card_matches_the_cpu(cuda, chunk):
+    """The SSD scan (plain torch, no kernel of its own) at 512 positions:
+    Q 256 (two chunks) and Q 1 (512 steps of the recurrence), on the card
+    against the CPU, output and final state within ``1e-4`` of the largest
+    CPU value (float32 in other summation orders)."""
+    from repro_torch.models import mamba2
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        y, state = mamba2.ssd_chunked(*_ssd_inputs(dev, 512), chunk, return_final_state=True)
+        out[dev.type] = (y.cpu(), state.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        scale = float(want.abs().max())
+        assert scale > 1.0
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_reduced_zamba2_prefill_through_the_kernel_matches_the_plain_attention(cuda, monkeypatch):
+    """zamba2-1.2b reduced on the card: its shared block's prefill attention
+    in the kernel (one launch per shared-block call), against the same
+    prefill with ``transformer.flash_gqa`` swapped for ``flash_gqa_ref``
+    (no launch) and against the CPU; logits and every cache leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid, prefill, transformer
+
+    cfg = get_config("zamba2-1.2b").reduced()
+    groups = hybrid.hybrid_structure(cfg)[0]
+    assert groups == 1
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 40)).astype(np.int32))
+    params = _perturbed_family_params(cfg, cuda)
+    launches = tattn.flash_attention.launches
+    logits, cache = prefill(cfg, params, {"tokens": tokens.to(cuda)})
+    assert tattn.flash_attention.launches == launches + groups
+    with monkeypatch.context() as m:
+        m.setattr(transformer, "flash_gqa", tattn.flash_gqa_ref)
+        plain_logits, plain_cache = prefill(cfg, params, {"tokens": tokens.to(cuda)})
+    assert tattn.flash_attention.launches == launches + groups
+    cpu_logits, cpu_cache = prefill(cfg, _perturbed_family_params(cfg, "cpu"),
+                                    {"tokens": tokens})
+    assert cpu_logits[..., :cfg.vocab_size].std() > 0.1
+    assert sorted(cache) == ["conv", "k", "state", "v"]
+    for want_logits, want_cache in ((plain_logits.cpu(), plain_cache), (cpu_logits, cpu_cache)):
+        torch.testing.assert_close(logits.cpu(), want_logits, **ATT_TOL)
+        for name in cache:
+            torch.testing.assert_close(cache[name].cpu(), want_cache[name].cpu(), **ATT_TOL)

@@ -176,7 +176,7 @@ def test_other_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
         init_params(get_config("whisper-small").reduced(), torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        prefill(get_config("mamba2-780m").reduced(), {}, {"tokens": torch.zeros(1, 2)})
+        prefill(get_config("whisper-small").reduced(), {}, {"tokens": torch.zeros(1, 2)})
 
 
 # ---------------------------------------------------------------- model
