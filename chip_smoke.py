@@ -20,8 +20,9 @@ Phases:
    The take kernel is timed on the main path's 8-column launch, on one
    column and on one row of one column (its launch floor), each with the
    host time of a call; flash attention also at phase 7's long prefills
-   (olmoe's head dim 128, gemma's 256) and at zamba2's (phase 8: 32 query
-   heads over 32 K/V heads of 64);
+   (olmoe's head dim 128, gemma's 256), at zamba2's (phase 8: 32 query
+   heads over 32 K/V heads of 64) and at whisper's (phase 9, non-causal:
+   the encoder's 1500 x 1500, the cross-attention's 224 x 1500);
 3. slice 1 at real size: a 2^24-row x 8 float64 table (1 GiB) scanned
    with ``ThallusClient`` and landed by ``batch_to_device`` (kept resident),
    scanned again with ``RpcClient`` and landed by ``batch_to_device_packed``
@@ -84,7 +85,26 @@ Phases:
    zamba2 cohort, never for mamba2 nor in a plain rerun. A profile of one
    prefill per set and one decode step splits products, flash, the SSD
    scan (``ssd_chunked``'s profiler range) and the rest;
-9. report: a ``{"kernels": [...]}`` line, the card line, and last the
+9. the audio family: whisper-small (12 encoder layers over 1500 frames, 12
+   decoder layers, d_model 768, 12 heads padded to 16 of 64, 2.93e8
+   float32 parameters) at full width and depth, seeded weights with layer
+   norms ``w = 1 + 0.1 N(0, 1)``, ``b = 0.1 N(0, 1)``, serves two sets
+   by the port's ``Batcher`` over the model API (``prefill`` on N(0, 1)
+   frames, greedy ``decode`` against the self and cross caches), batch 4:
+   (w-a) 8 clips with the
+   4-token start-of-transcript prompt and 32 new tokens, (w-b) 4 clips with
+   224-token previous-text prompts and 8. Each cohort's prefill launches
+   flash 36 times (the encoder non-causal over 1500 x 1500, the decoder's
+   causal self-attention, its non-causal cross-attention with Sq != Sk),
+   a decode step never; each is held to a prefill through the plain
+   attention, every served position's logits to a teacher-forced
+   ``forward``, each set's first cohort decoded on random text (each step
+   fed another token id) to the forward, and one 2 x 448-token loss and
+   gradient (remat full)
+   through the kernel to the plain attention's. ``[serve]`` lines give
+   tok/s, prefill ms with the encoder's share, decode ms, the peak memory,
+   and a profile of one prefill per set and one decode step;
+10. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any mismatch raises: the script then exits non-zero and prints no result
@@ -706,9 +726,16 @@ def phase_slice(dev, rows: int) -> dict:
 
 
 # --------------------------------------------------------------- attention
+# whisper-small's non-causal shapes (batch 4 x 16 heads of 64, as many K/V
+# rows, 1500 frames = 23 key tiles of 64 and a ragged one of 28): the
+# encoder's self-attention, the cross-attention from set (w-b)'s 224-token
+# prompts and from set (w-a)'s 4-token ones.
+WHISPER_ATT_CASES = [(64, 1500, 1500, 64, 64, False), (64, 224, 1500, 64, 64, False),
+                     (64, 4, 1500, 64, 64, False)]
 # (BH, Sq, Sk, hd, KV rows, causal): the JAX kernel tests' shapes, causal
-# with Sq != Sk both ways, ragged lengths, shared K/V rows, and granite's
-# prefill (B 4 x H 32 query rows, B 4 x KV 8 K/V rows, S 1024, hd 64).
+# with Sq != Sk both ways, ragged lengths, shared K/V rows, granite's
+# prefill (B 4 x H 32 query rows, B 4 x KV 8 K/V rows, S 1024, hd 64),
+# zamba2's and whisper's.
 ATT_CASES = ([(2, 128, 128, 64, 2, c) for c in (True, False)]
              + [(1, 256, 256, 32, 1, c) for c in (True, False)]
              + [(1, 128, 384, 128, 1, False),
@@ -720,19 +747,26 @@ ATT_CASES = ([(2, 128, 128, 64, 2, c) for c in (True, False)]
              + [(2, 63, 129, 64, 1, True), (2, 129, 63, 64, 1, False), (4, 65, 129, 16, 2, True),
                 (1, 63, 65, 32, 1, True), (1, 65, 33, 128, 1, True), (1, 33, 65, 128, 1, False),
                 (1, 65, 65, 256, 1, True), (1, 31, 97, 256, 1, False)]
-             + [(128, 1024, 1024, 64, 32, True), (128, 1024, 1024, 64, 128, True)])
+             + [(128, 1024, 1024, 64, 32, True), (128, 1024, 1024, 64, 128, True)]
+             + WHISPER_ATT_CASES)
 # bfloat16 through the kernel (widened to float32, narrowed back) and the
 # gradients through its autograd function: (BH, Sq, Sk, hd, KV rows, causal).
 ATT_BF16_CASES = [(8, 65, 65, 64, 2, True), (2, 129, 63, 128, 1, False), (128, 1024, 1024, 64, 32, True)]
-ATT_GRAD_CASES = [(8, 130, 97, 64, 2, True), (4, 65, 65, 16, 2, False)]
+ATT_GRAD_CASES = [(8, 130, 97, 64, 2, True), (4, 65, 65, 16, 2, False),
+                  (16, 224, 1500, 64, 16, False)]   # whisper's cross-attention
 GRANITE_ATT = (128, 1024, 1024, 64, 32, True)
 GRANITE_TRAIN_ATT = (256, 128, 128, 64, 64, True)  # 8 x 32 query rows, 8 x 8 K/V rows
 # Phase 7's long prefills (batch 4, S 1024): olmoe-1b-7b, 16 heads of 128 over
 # 16 K/V heads; gemma-2b, 8 heads padded to 16, of 256, over one K/V head;
-# phase 8's: zamba2-1.2b's shared block, 32 heads of 64 over 32 K/V heads.
+# phase 8's: zamba2-1.2b's shared block, 32 heads of 64 over 32 K/V heads;
+# phase 9's (batch 4, whisper-small's 12 heads padded to 16, of 64, over 16
+# K/V heads): the encoder's self-attention over its 1500 frames and the
+# decoder's cross-attention from set (w-b)'s 224-token prompts, non-causal.
 FAMILY_ATT = {"olmoe-1b-7b": (64, 1024, 1024, 128, 64, True),
               "gemma-2b": (64, 1024, 1024, 256, 4, True),
-              "zamba2-1.2b": (128, 1024, 1024, 64, 128, True)}
+              "zamba2-1.2b": (128, 1024, 1024, 64, 128, True),
+              "whisper-small encoder": (64, 1500, 1500, 64, 64, False),
+              "whisper-small cross": (64, 224, 1500, 64, 64, False)}
 
 
 def attention_inputs(dev, bh, sq, sk, hd, bkv, seed):
@@ -760,14 +794,17 @@ def check_attention(dev) -> dict:
     first miss. Returns the largest absolute difference in float32 and in
     bfloat16."""
     from repro_torch.kernels.attention import attention_ref, flash_attention
-    worst = 0.0
+    diffs = []
     for i, (bh, sq, sk, hd, bkv, causal) in enumerate(ATT_CASES):
         q, k, v = attention_inputs(dev, bh, sq, sk, hd, bkv, seed=100 + i)
         what = f"flash_attention BH={bh} Sq={sq} Sk={sk} hd={hd} kv_rows={bkv} causal={causal}"
-        worst = max(worst, within(what, flash_attention(q, k, v, causal=causal),
-                                  attention_ref(q, k, v, causal=causal), ATT_RTOL))
+        diffs.append(within(what, flash_attention(q, k, v, causal=causal),
+                            attention_ref(q, k, v, causal=causal), ATT_RTOL))
+    worst = max(diffs)
+    whisper = {str(case): d for case, d in zip(ATT_CASES, diffs) if case in WHISPER_ATT_CASES}
     log(f"[kernels] flash_attention within atol=rtol={ATT_ATOL} of attention_ref in "
-        f"{len(ATT_CASES)} cases, max |diff| {worst:.3e}")
+        f"{len(ATT_CASES)} cases, max |diff| {worst:.3e}; at whisper's shapes "
+        + ", ".join(f"{case} {d:.3e}" for case, d in whisper.items()))
     worst_bf16 = 0.0
     for i, (bh, sq, sk, hd, bkv, causal) in enumerate(ATT_BF16_CASES):
         q, k, v = (t.bfloat16() for t in attention_inputs(dev, bh, sq, sk, hd, bkv, seed=200 + i))
@@ -797,7 +834,8 @@ def check_attention(dev) -> dict:
     log(f"[kernels] flash_attention gradients within atol=rtol={ATT_ATOL} of attention_ref's "
         f"in {len(ATT_GRAD_CASES)} cases, max |diff| {worst_grad:.3e} (the backward recomputes "
         f"attention_ref, so this checks that the kernel's path carries a gradient)")
-    return {"float32": worst, "bfloat16": worst_bf16}
+    return {"float32": worst, "bfloat16": worst_bf16, "gradients": worst_grad,
+            "float32_whisper": whisper}
 
 
 def attention_work(bh, sq, sk, hd, bkv, causal) -> tuple[int, float]:
@@ -819,11 +857,12 @@ def time_attention_at(dev, timer, shape, batch, label) -> dict:
     nbytes, flops = attention_work(*shape)
     row = dict(ms=timer.ms(lambda: flash_attention(q, k, v, causal=causal)), smi=timer.smi,
                plain_ms=timer.ms(lambda: attention_ref(q, k, v, causal=causal)),
-               library_ms=timer.ms(lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)),
+               library_ms=timer.ms(lambda: sdpa(q4, k4, v4, is_causal=causal, enable_gqa=True)),
                nbytes=nbytes, flops=flops, shape=list(shape))
     row["bound_ms"] = bound_ms(nbytes, flops)
     row["bound_by"] = "operations" if flops / FP32_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes"
-    log(f"[kernels] flash_attention ({label}, BH={bh} S={sq} hd={hd} kv_rows={bkv} causal): "
+    log(f"[kernels] flash_attention ({label}, BH={bh} Sq={sq} Sk={sk} hd={hd} kv_rows={bkv} "
+        f"causal={causal}): "
         f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
         f"(scaled_dot_product_attention) bound_ms={row['bound_ms']:.5f} bytes={nbytes} "
         f"flops={flops:.6e} share_of_bound={row['bound_ms'] / row['ms']:.3f} "
@@ -835,7 +874,8 @@ def time_attention(dev, timer) -> dict:
     """The kernel at granite's long prefill (the serve path's and the 4 x
     1024 train shape's), under ``train_default`` at the launcher's default
     train shape (8 x 128), and under ``families`` at phase 7's long
-    prefills (head dims 128 and 256) and phase 8's (zamba2, MHA)."""
+    prefills (head dims 128 and 256), phase 8's (zamba2, MHA) and phase 9's
+    (whisper's encoder and cross-attention, non-causal)."""
     row = time_attention_at(dev, timer, GRANITE_ATT, 4, "main path")
     row["train_default"] = time_attention_at(dev, timer, GRANITE_TRAIN_ATT, 8, "train 8 x 128")
     row["families"] = {arch: time_attention_at(dev, timer, shape, 4, f"{arch} prefill")
@@ -864,10 +904,17 @@ def norm_nodes(params) -> list:
 def perturbed_params(cfg, dev):
     """The port's init at ``cfg`` (seed 0) with every norm weight set to
     1 + 0.1 N(0, 1) (seed 1), in :func:`norm_nodes`' order: the init's zero
-    norms make every logit 0."""
-    from repro_torch.models import init_params
+    norms make every logit 0. An encoder-decoder's layer norms (which start
+    at w = 1, b = 0) get w = 1 + 0.1 N(0, 1) and b = 0.1 N(0, 1), so that a
+    swapped or dropped bias shows."""
+    from repro_torch.models import encdec, init_params
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
+    if "encoder" in params:
+        for node in encdec.layer_norm_nodes(params):
+            node["w"] = 1.0 + 0.1 * torch.randn(node["w"].shape, generator=g, device=dev)
+            node["b"] = 0.1 * torch.randn(node["b"].shape, generator=g, device=dev)
+        return params
     for tree, key in norm_nodes(params):
         tree[key] = 1.0 + 0.1 * torch.randn(tree[key].shape, generator=g, device=dev)
     return params
@@ -1259,6 +1306,27 @@ def first_call_args(module, name: str, run) -> tuple:
     return tuple(got)
 
 
+def hold_to_forward(what: str, fwd, got, gen) -> tuple[float, int]:
+    """Served logits ``got`` (B, n, V) against a teacher-forced forward's
+    ``fwd`` at the same positions, and the served tokens ``gen`` (B, n)
+    against its argmax (or a tie within the limit); raises on a miss.
+    Returns the max relative error and the count of ties."""
+    if got.shape != fwd.shape:
+        raise AssertionError(f"{what}: {tuple(got.shape)} served logits against "
+                             f"{tuple(fwd.shape)} of the forward")
+    scale = float(fwd.abs().max())
+    err = float((got - fwd).abs().max()) / scale
+    top = fwd.max(-1)
+    at_served = fwd.gather(-1, gen[..., None])[..., 0]
+    is_max = top.indices == gen
+    tie = (top.values - at_served) <= SERVE_REL * scale
+    if not err <= SERVE_REL or not bool((is_max | tie).all()):
+        raise AssertionError(f"{what}: decode against the forward: max rel err {err:.3e} "
+                             f"(limit {SERVE_REL}), {int((~(is_max | tie)).sum())} served "
+                             f"tokens not the argmax")
+    return err, int((~is_max).sum())
+
+
 def check_decode_against_forward(cfg, params, label, res, recorded) -> dict:
     """Each cohort's served logits (``recorded``, per cohort the prefill's
     last position and each decode step's) against ``forward`` over its
@@ -1275,21 +1343,9 @@ def check_decode_against_forward(cfg, params, label, res, recorded) -> dict:
         full = torch.cat([torch.from_numpy(toks).to(dev).long(), gen[:, :-1]], 1)
         fwd = forward(cfg, params, {"tokens": full}, remat="none")[:, S0 - 1:, :cfg.vocab_size]
         got = torch.stack(recorded[i], 1)[..., :cfg.vocab_size]
-        if got.shape != fwd.shape:
-            raise AssertionError(f"{label} cohort {i}: {tuple(got.shape)} served logits against "
-                                 f"{tuple(fwd.shape)} of the forward")
-        scale = float(fwd.abs().max())
-        err = float((got - fwd).abs().max()) / scale
-        top = fwd.max(-1)
-        at_served = fwd.gather(-1, gen[..., None])[..., 0]
-        is_max = top.indices == gen
-        tie = (top.values - at_served) <= SERVE_REL * scale
-        if not err <= SERVE_REL or not bool((is_max | tie).all()):
-            raise AssertionError(f"{cfg.name} {label} cohort {i}: decode against the forward: "
-                                 f"max rel err {err:.3e} (limit {SERVE_REL}), "
-                                 f"{int((~(is_max | tie)).sum())} served tokens not the argmax")
+        err, n_ties = hold_to_forward(f"{cfg.name} {label} cohort {i}", fwd, got, gen)
         worst = max(worst, err)
-        ties += int((~is_max).sum())
+        ties += n_ties
         positions += gen.numel()
         del fwd, got
     out = {"max_rel_err": worst, "positions": positions, "ties": ties,
@@ -1535,7 +1591,324 @@ def phase_ssm(dev, wrappers) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- audio
+AUDIO_ARCH = "whisper-small"
+# Whisper's special tokens in its 51865-word vocabulary: start of transcript,
+# English, transcribe, no timestamps (the usual transcription request), and
+# start of the previous window's text (long-form transcription's
+# conditioning); ids below TEXT_TOKENS are text.
+SOT_PROMPT = (50258, 50259, 50359, 50363)
+START_OF_PREV = 50361
+TEXT_TOKENS = 50257
+# (clips, prompt tokens, new tokens) at batch AUDIO_BATCH: (w-a) the
+# start-of-transcript prompt; (w-b) 219 tokens of the previous window's
+# text between START_OF_PREV and it.
+AUDIO_SETS = {"w_a_sot": (8, 4, 32), "w_b_prev_text": (4, 224, 8)}
+AUDIO_BATCH = 4
+AUDIO_TRAIN = (2, 448)   # batch, decoder tokens (Whisper's decoder context)
+
+
+def audio_prompts(clips: int, length: int, seed: int) -> np.ndarray:
+    """``clips`` equal-length prompts: the start-of-transcript request, or
+    with ``length - 5`` random text tokens of a previous window before it."""
+    sot = np.tile(np.asarray(SOT_PROMPT, np.int32), (clips, 1))
+    if length == len(SOT_PROMPT):
+        return sot
+    text = np.random.default_rng(seed).integers(0, TEXT_TOKENS, (clips, length - 1 - sot.shape[1]))
+    return np.concatenate([np.full((clips, 1), START_OF_PREV), text, sot], 1).astype(np.int32)
+
+
+def audio_frames(cfg, dev, batch: int, seed: int):
+    """N(0, 1) frame embeddings (batch, encoder_seq, d_model): the conv
+    front end's output, which the model takes as its input."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(batch, cfg.encdec.encoder_seq, cfg.d_model, generator=g, device=dev)
+
+
+def serve_audio_cohort(cfg, params, frames, prompt, new_tokens: int, flash, dev) -> dict:
+    """Greedy decoding of one cohort by the port's ``Batcher`` over the
+    model API, with closures that bind the cohort's frames: ``prefill`` on
+    the frames and the prompts, the batcher's cache growth, ``new_tokens -
+    1`` decode steps. Each call is timed on the host clock to a synchronize
+    around it; the served logits (the prefill's last position, then each
+    step's), the flash launches of the prefill and of the decode steps, and
+    the last cache are recorded."""
+    from repro_torch.models import decode, prefill
+    from repro_torch.serving import Batcher, Request
+    rec = {"prefill_s": [], "decode_s": [], "prefill_launches": 0, "decode_launches": 0,
+           "logits": []}
+
+    def timed(kind, call):
+        torch.cuda.synchronize()
+        before, t = flash.launches, time.perf_counter()
+        logits, cache = call()
+        torch.cuda.synchronize()
+        rec[kind + "_s"].append(time.perf_counter() - t)
+        rec[kind + "_launches"] += flash.launches - before
+        rec["logits"].append(logits[:, -1].clone())
+        rec["cache"] = cache
+        return logits, cache
+
+    def prefill_fn(tokens):
+        return timed("prefill", lambda: prefill(cfg, params, {"frames": frames, "tokens": tokens}))
+
+    def decode_fn(cache, tokens, position):
+        return timed("decode", lambda: decode(cfg, params, cache, tokens, position))
+
+    batcher = Batcher(prefill_fn, decode_fn, batch_size=prompt.shape[0], device=dev)
+    for i, row in enumerate(prompt.cpu().numpy()):
+        batcher.submit(Request(i, row, max_new_tokens=new_tokens))
+    done = batcher.run()
+    rec["prefill_s"] = rec["prefill_s"][0]
+    rec.update(tokens=torch.tensor([c.tokens for c in done], device=dev),
+               logits=torch.stack(rec["logits"], 1))
+    return rec
+
+
+def check_teacher_forced(cfg, params, frames, prompt, text, what: str, flash) -> dict:
+    """Decode fed the next tokens of a random ``text`` (B, n) in place of
+    its own argmax, so that every step reads other token ids (greedy
+    decoding on random tied weights repeats one token): prefill on the
+    prompt, the self caches grown by n, n decode steps; the prefill's last
+    logits and every step's held to a forward over prompt + text with
+    :func:`hold_to_forward` (the served argmax the forward's or a tie). No
+    decode step launches flash."""
+    from repro_torch.models import decode, forward, prefill
+    S, n = prompt.shape[1], text.shape[1]
+    logits, cache = prefill(cfg, params, {"frames": frames, "tokens": prompt})
+    cache = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (n,) + v.shape[3:])], 2)
+             if k.startswith("self") else v for k, v in cache.items()}
+    got = [logits[:, -1].clone()]
+    del logits
+    before = flash.launches
+    for step in range(n):
+        logits, cache = decode(cfg, params, cache, text[:, step:step + 1], S + step)
+        got.append(logits[:, -1])
+    launched = flash.launches - before
+    if launched:
+        raise AssertionError(f"{what}: {launched} flash launches in {n} decode steps")
+    V = cfg.vocab_size
+    got = torch.stack(got, 1)[..., :V]
+    full = torch.cat([prompt.long(), text.long()], 1)
+    fwd = forward(cfg, params, {"frames": frames, "tokens": full}, remat="none")[:, S - 1:, :V]
+    err, ties = hold_to_forward(what, fwd, got, got.argmax(-1))
+    fed = len(set(text.flatten().tolist()))
+    argmaxes = len(set(got.argmax(-1).flatten().tolist()))
+    log(f"[serve] {what}: decode fed {n} tokens of random text ({fed} distinct ids) against "
+        f"the teacher-forced forward at {got.shape[0] * got.shape[1]} positions: max rel err "
+        f"{err:.3e} (limit {SERVE_REL}), {argmaxes} distinct argmaxes, {ties} ties; 0 flash "
+        f"launches smi={gpu_state()}")
+    return {"max_rel_err": err, "ties": ties, "positions": got.shape[0] * got.shape[1],
+            "distinct_fed": fed, "distinct_argmax": argmaxes}
+
+
+def check_audio_prefill(cfg, params, frames, prompt, first, what: str, flash) -> dict:
+    """A cohort's prefill through the kernel (rerun) against one through the
+    plain attention (``transformer.flash_gqa`` swapped for ``flash_gqa_ref``
+    and restored): the real vocabulary's logits and the four cache leaves
+    within SERVE_REL x max |plain|; the kernel rerun launches flash once per
+    encoder layer and twice per decoder layer, the plain rerun never; the
+    rerun's greedy first tokens are the served ``first``."""
+    from repro_torch.kernels.attention import flash_gqa_ref
+    from repro_torch.models import prefill, transformer
+    batch = {"frames": frames, "tokens": prompt}
+    before = flash.launches
+    logits, cache = prefill(cfg, params, batch)
+    launches = {"kernel_rerun": flash.launches - before}
+    kernel_fn = transformer.flash_gqa
+    transformer.flash_gqa = flash_gqa_ref
+    before = flash.launches
+    try:
+        want_logits, want_cache = prefill(cfg, params, batch)
+    finally:
+        transformer.flash_gqa = kernel_fn
+    launches["plain_rerun"] = flash.launches - before
+    if launches != {"kernel_rerun": flash_per_pass(cfg), "plain_rerun": 0}:
+        raise AssertionError(f"{what}: flash launches {launches}, expected "
+                             f"{flash_per_pass(cfg)} in the kernel rerun and 0 in the plain one")
+    V = cfg.vocab_size
+    if not torch.equal(torch.argmax(logits[:, -1], -1), first):
+        raise AssertionError(f"{what}: the rerun's first tokens are not the served ones")
+    if not torch.equal(logits[..., V:], want_logits[..., V:]):
+        raise AssertionError(f"{what}: padded vocabulary not masked alike")
+    std = float(want_logits[..., :V].std())
+    if not std > 0 or not all(c.any() for c in want_cache.values()):
+        raise AssertionError(f"{what}: degenerate prefill (logit std {std})")
+    errs = {"logits": rel_err(logits[..., :V], want_logits[..., :V]),
+            **{name: rel_err(cache[name], want_cache[name]) for name in cache}}
+    bad = {k: e for k, e in errs.items() if not e <= SERVE_REL}
+    if bad:
+        raise AssertionError(f"{what}: kernel vs plain prefill beyond {SERVE_REL} relative: {bad}")
+    log(f"[serve] {what}: kernel vs plain prefill max rel err "
+        + " ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (limit {SERVE_REL}); flash "
+        f"launches {launches}; logit std {std:.4f}; cache "
+        f"{ {k: tuple(v.shape) for k, v in cache.items()} } smi={gpu_state()}")
+    return {"flash_launches": launches, "logit_std": std, **errs}
+
+
+def phase_audio(dev, wrappers) -> dict:
+    """Phase 9: whisper-small at full width and depth serves sets (w-a) and
+    (w-b) by the port's ``Batcher`` over the model API (``prefill``, then
+    ``decode`` against the self and cross caches), batch AUDIO_BATCH,
+    greedy, each cohort on its own seeded frames; the flash launches are
+    counted over the serving alone (36 a cohort prefill, none in a decode
+    step). Then the checks: each cohort's kernel prefill against the plain
+    attention's, every served position's logits against a teacher-forced
+    ``forward``, each set's first cohort decoded on random text against the
+    forward (varied token ids), one loss and gradient at AUDIO_TRAIN
+    through the kernel against the plain attention (remat full); and the
+    encoder's share of a prefill, a profile of one prefill per set and one
+    decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, forward
+    from repro_torch.models import decode as decode_step
+    from repro_torch.models import prefill as prefill_fn
+    cfg = get_config(AUDIO_ARCH)
+    flash = wrappers["flash_attention"]
+    t0 = time.perf_counter()
+    params = perturbed_params(cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.encdec.num_encoder_layers} encoder layers over "
+        f"{cfg.encdec.encoder_seq} frames, {describe(cfg)}; {n_params} float32 parameters made "
+        f"in {time.perf_counter() - t0:.2f} s smi={gpu_state()}")
+    cohorts = {}
+    for s, (label, (clips, length, new)) in enumerate(AUDIO_SETS.items()):
+        prompts = audio_prompts(clips, length, seed=s)
+        cohorts[label] = [(torch.from_numpy(prompts[i:i + AUDIO_BATCH]).to(dev),
+                           audio_frames(cfg, dev, len(prompts[i:i + AUDIO_BATCH]),
+                                        seed=100 * (s + 1) + i), new)
+                          for i in range(0, clips, AUDIO_BATCH)]
+    warm = cohorts["w_a_sot"][0]
+    serve_audio_cohort(cfg, params, warm[1][:1], warm[0][:1], 2, flash, dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    runs = {}
+    for label, group in cohorts.items():
+        t = time.perf_counter()
+        runs[label] = [serve_audio_cohort(cfg, params, frames, prompt, new, flash, dev)
+                       for prompt, frames, new in group]
+        runs[label + "_seconds"] = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out = {"launches": {"serve": launches["flash_attention"]}, "max_memory_allocated": peak,
+           "sets": {}, "profile": {}}
+    for label, group in cohorts.items():
+        res, seconds = runs[label], runs.pop(label + "_seconds")
+        n_tokens = sum(r["tokens"].numel() for r in res)
+        for i, r in enumerate(res):
+            if r["prefill_launches"] != flash_per_pass(cfg) or r["decode_launches"]:
+                raise AssertionError(f"{label} cohort {i}: flash launched {r['prefill_launches']} "
+                                     f"times in the prefill (expected {flash_per_pass(cfg)}) "
+                                     f"and {r['decode_launches']} in the decode steps (0)")
+        tokens = torch.cat([r["tokens"] for r in res]).tolist()
+        encode_ms = []
+        for prompt, frames, _ in group:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            encdec.encode(cfg, params, frames, remat="none")
+            torch.cuda.synchronize()
+            encode_ms.append((time.perf_counter() - t) * 1e3)
+        decode_ms = [s * 1e3 for r in res for s in r["decode_s"]]
+        # random weights with a tied embedding repeat a clip's last token;
+        # the checks below hold every position's logits to the forward, and
+        # feed decode random text
+        row = {"requests": len(tokens), "tokens": n_tokens, "seconds": seconds,
+               "distinct_tokens": len({t for r in tokens for t in r}),
+               "tokens_per_s": n_tokens / seconds, "prompt_len": group[0][0].shape[1],
+               "prefill_ms": [r["prefill_s"] * 1e3 for r in res], "encode_ms": encode_ms,
+               "decode_ms": decode_ms,
+               "flash_launches": {"prefill": [r["prefill_launches"] for r in res],
+                                  "decode": [r["decode_launches"] for r in res]}}
+        row["encoder_share"] = [e / p for e, p in zip(encode_ms, row["prefill_ms"])]
+        log(f"[serve] {cfg.name} {label}: {row['requests']} clips, {n_tokens} tokens in "
+            f"{seconds:.4f} s ({row['tokens_per_s']:.3f} tok/s), {row['distinct_tokens']} distinct; "
+            f"prompts of {row['prompt_len']} "
+            f"tokens; prefill ms per cohort {[round(x, 3) for x in row['prefill_ms']]}, the "
+            f"encoder alone {[round(x, 3) for x in encode_ms]} (share "
+            f"{[round(x, 3) for x in row['encoder_share']]}); decode ms per step median "
+            f"{statistics.median(decode_ms):.3f} (min {min(decode_ms):.3f}, max "
+            f"{max(decode_ms):.3f}, {len(decode_ms)} steps); flash launches "
+            f"{row['flash_launches']} smi={gpu_state()}")
+        for i, r in enumerate(tokens[:4]):
+            log(f"[serve] {cfg.name} {label} clip {i}: {r} smi={gpu_state()}")
+        out["sets"][label] = row
+    log(f"[serve] {cfg.name}: launches in the serve phase: {launches}; "
+        f"torch.cuda.max_memory_allocated {peak} B smi={gpu_state()}")
+    for s, (label, group) in enumerate(cohorts.items()):
+        checks, worst, ties = [], 0.0, 0
+        for i, ((prompt, frames, _), r) in enumerate(zip(group, runs[label])):
+            what = f"{cfg.name} {label} cohort {i} {tuple(prompt.shape)}"
+            checks.append(check_audio_prefill(cfg, params, frames, prompt, r["tokens"][:, 0],
+                                              what, flash))
+            S, gen = prompt.shape[1], r["tokens"]
+            full = torch.cat([prompt.long(), gen[:, :-1]], 1)
+            fwd = forward(cfg, params, {"frames": frames, "tokens": full},
+                          remat="none")[:, S - 1:, :cfg.vocab_size]
+            err, n_ties = hold_to_forward(what, fwd, r["logits"][..., :cfg.vocab_size], gen)
+            worst, ties = max(worst, err), ties + n_ties
+            del fwd
+        row = out["sets"][label]
+        row["cohorts"] = checks
+        row["decode_vs_forward"] = {"max_rel_err": worst, "ties": ties,
+                                    "positions": sum(r["tokens"].numel() for r in runs[label])}
+        log(f"[serve] {cfg.name} {label}: decode against the teacher-forced forward at "
+            f"{row['decode_vs_forward']['positions']} served positions: max rel err {worst:.3e} "
+            f"(limit {SERVE_REL}), served token the forward's argmax at all but {ties} (ties "
+            f"within the limit) smi={gpu_state()}")
+        prompt, frames, new = group[0]
+        text = np.random.default_rng(50 + s).integers(
+            0, TEXT_TOKENS, (prompt.shape[0], new))
+        row["teacher_forced"] = check_teacher_forced(
+            cfg, params, frames, prompt, torch.from_numpy(text).to(dev),
+            f"{cfg.name} {label} cohort 0 {tuple(prompt.shape)}", flash)
+        out["profile"][f"{label} prefill"] = profile_device(
+            f"{cfg.name} {label} prefill {tuple(prompt.shape)} on {tuple(frames.shape)} frames",
+            lambda: prefill_fn(cfg, params, {"frames": frames, "tokens": prompt}))
+    r, (prompt, _, new) = runs["w_a_sot"][0], cohorts["w_a_sot"][0]
+    step, position = r["tokens"][:, -1:], prompt.shape[1] + new - 1
+    out["profile"]["decode step"] = profile_device(
+        f"{cfg.name} decode step at position {position}",
+        lambda: decode_step(cfg, params, r["cache"], step, position))
+    del runs, cohorts, r
+    torch.cuda.empty_cache()
+
+    batch_rows, length = AUDIO_TRAIN
+    prompts = audio_prompts(batch_rows, length, seed=7)
+    tokens = torch.from_numpy(prompts).to(dev)
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)], 1)
+    batch = {"frames": audio_frames(cfg, dev, batch_rows, seed=900), "tokens": tokens,
+             "labels": labels}
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    g = check_train_grads(cfg, params, batch, wrappers)
+    g["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["grad_check"] = g
+    out["launches"]["train_check"] = g["flash_launches"]
+    log(f"[train] {cfg.name} kernel vs plain attention, {batch_rows} x {length} tokens on "
+        f"{cfg.encdec.encoder_seq} frames, remat full: loss {g['loss']:.6f} against "
+        f"{g['plain_loss']:.6f} (rel err {g['loss_rel_err']:.3e}, limit {TRAIN_LOSS_REL}); worst "
+        f"gradient {g['worst_grad']} rel err {g['grad_rel_err'][g['worst_grad']]:.3e} (limit "
+        f"{SERVE_REL} x max |plain|); {g['flash_launches']} flash launches (forward and "
+        f"recompute); max_memory_allocated {g['max_memory_allocated']} B smi={gpu_state()}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------- train
+def flash_per_pass(cfg) -> int:
+    """Flash launches of one forward pass: one per attention layer; for an
+    encoder-decoder one per encoder layer and two per decoder layer (self
+    and cross)."""
+    if cfg.encdec is not None:
+        return cfg.encdec.num_encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
 def train_grads(cfg, params, batch, remat):
     """(loss, {leaf name: gradient}) of ``loss_fn`` at ``params``."""
     from repro_torch.models import loss_fn
@@ -1558,9 +1931,9 @@ def check_train_grads(cfg, params, batch, wrappers) -> dict:
     loss, grads = train_grads(cfg, params, batch, "full")
     torch.cuda.synchronize()
     launched = wrappers["flash_attention"].launches - launches
-    if launched != 2 * cfg.num_layers:
+    if launched != 2 * flash_per_pass(cfg):
         raise AssertionError(f"train check: {launched} flash launches, expected "
-                             f"{2 * cfg.num_layers} (forward and recompute)")
+                             f"{2 * flash_per_pass(cfg)} (forward and recompute)")
     kernel_fn = transformer.flash_gqa
     transformer.flash_gqa = flash_gqa_ref
     try:
@@ -2105,6 +2478,8 @@ def main(argv=None) -> int:
     ssm_out = phase_ssm(dev, wrappers)
     flash_paths.update({f"serve_{arch}": r["launches"]["flash_attention"]
                         for arch, r in ssm_out.items()})
+    audio_out = phase_audio(dev, wrappers)
+    flash_paths.update({f"{path}_{AUDIO_ARCH}": n for path, n in audio_out["launches"].items()})
     launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
@@ -2142,7 +2517,8 @@ def main(argv=None) -> int:
                                                        "library_ms", "bound_ms")})
         report.append(row)
     phases = {"slice": slice_out, "serve": serve_out, "train": train_out,
-              "gateway": gateway_out, "families": families_out, "ssm": ssm_out}
+              "gateway": gateway_out, "families": families_out, "ssm": ssm_out,
+              "audio": audio_out}
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
         f"phases={json.dumps(phases)}")
     print(json.dumps({"kernels": report}))

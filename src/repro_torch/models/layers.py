@@ -1,6 +1,6 @@
 """Shared neural building blocks: the port of :mod:`repro.models.layers`.
 
-Norms, rotary embeddings, gated MLPs, attention and the loss, in plain
+Norms (RMSNorm and LayerNorm), rotary embeddings, gated MLPs, attention and the loss, in plain
 PyTorch on the tensors' own device. Prefill attention in the model goes
 through the flash kernel (:func:`repro_torch.kernels.attention.flash_gqa`)
 where the JAX package runs :func:`chunked_attention`; the chunked form is
@@ -32,6 +32,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     w = weight.float()
     out = x32 * (1.0 + w) if zero_centered else x32 * w
     return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 with the population variance (``jnp.var``'s, not
+    ``torch.var``'s unbiased default), cast back to x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,20 @@
-"""The port's dense, MoE, VLM, SSM and hybrid configs against the JAX
-package's, on the CPU: every config of those families but granite-3-2b
+"""The port's dense, MoE, VLM, SSM, hybrid and audio configs against the
+JAX package's, on the CPU: every config of those families but granite-3-2b
 (which ``test_torch_serve.py`` and ``test_torch_train.py`` hold);
-``test_torch_ssm.py`` holds the SSD scan and the SSM serving paths besides.
+``test_torch_ssm.py`` holds the SSD scan and the SSM serving paths besides,
+``test_torch_encdec.py`` the encoder-decoder's parts.
 
 Each reduced config takes the JAX ``init_params`` tree with every norm
 weight (``ln1``, ``ln2``, ``final_norm``, ``q_norm``/``k_norm`` where the
 config has them; an SSM layer's ``ln`` and gated ``norm``; the hybrid's
 shared ``ln1``/``ln2``) set to ``1 + 0.1 N(0, 1)`` from a numpy seed: the
 JAX init's zero norms make every logit 0 (ROADMAP.md, faults of the
-reference). The internvl2 batch adds ``patch_embeds`` (B, 4, 64): its
-logits cover ``4 + S`` positions and its loss the text only.
+reference). whisper's layer norms (encoder ``ln1``, ``ln2``, decoder
+``ln1``–``ln3``, both final norms) start at ``w = 1``, ``b = 0``; their
+``w`` is set to ``1 + 0.1 N(0, 1)`` and ``b`` to ``0.1 N(0, 1)``, so that a
+swapped or dropped bias shows. The internvl2 batch adds ``patch_embeds``
+(B, 4, 64): its logits cover ``4 + S`` positions and its loss the text
+only; the whisper batch adds ``frames`` (B, 24, 64), the encoder's input.
 
 Tolerances: ``MODEL_TOL`` (``rtol = atol = 1e-4``) on logits and caches,
 the largest difference measured 3.1e-5 (gemma-2b's logits, std ~16); the
@@ -54,8 +59,8 @@ from repro.training import train_state_shapes as jax_train_state_shapes
 from repro_torch.configs import get_config
 from repro_torch.data import shift_labels
 from repro_torch.launch.serve import make_requests, serve
-from repro_torch.models import (decode, forward, loss_fn, moe, param_shapes, params_from_numpy,
-                                params_to_numpy, prefill, transformer)
+from repro_torch.models import (decode, encdec, forward, loss_fn, moe, param_shapes,
+                                params_from_numpy, params_to_numpy, prefill, transformer)
 from repro_torch.training import (CheckpointManager, OptimizerConfig, TrainConfig,
                                   init_train_state, make_train_step, train_state_shapes)
 from repro_torch.training.tree import flatten_with_paths
@@ -67,8 +72,9 @@ ROOT = Path(__file__).resolve().parents[1]
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 DECODE_TOL = dict(rtol=2e-4, atol=2e-4)
 ARCHS = ("gemma-2b", "deepseek-67b", "deepseek-coder-33b", "olmoe-1b-7b",
-         "llama4-scout-17b-a16e", "internvl2-76b", "mamba2-780m", "zamba2-1.2b")
-KV_KEYS = ("k", "v")   # the cache leaves that grow with the sequence
+         "llama4-scout-17b-a16e", "internvl2-76b", "mamba2-780m", "zamba2-1.2b",
+         "whisper-small")
+KV_KEYS = ("k", "v", "self_k", "self_v")   # the cache leaves that grow with the sequence
 B, S, EXTRA = 2, 12, 4
 ONE_STEP = dict(OPT, warmup_steps=0)   # the full learning rate at step 0
 
@@ -93,6 +99,11 @@ def _norm_nodes(params):
 
 
 def _perturb_norms(params, rng):
+    if "encoder" in params:                          # audio: LayerNorm w and b
+        for node in encdec.layer_norm_nodes(params):
+            node["w"] = (1.0 + 0.1 * rng.standard_normal(node["w"].shape)).astype(np.float32)
+            node["b"] = (0.1 * rng.standard_normal(node["b"].shape)).astype(np.float32)
+        return
     for node, key in _norm_nodes(params):
         node[key] = (1.0 + 0.1 * rng.standard_normal(node[key].shape)).astype(np.float32)
 
@@ -117,6 +128,9 @@ def numpy_batch(cfg, length=S, seed=11, batch=B):
     if cfg.family == "vlm":
         out["patch_embeds"] = rng.standard_normal(
             (batch, cfg.vlm.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encdec.encoder_seq, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -173,7 +187,7 @@ def test_embed_tokens_scale_is_rounded_like_jax(dtype):
 # ---------------------------------------------------------------- shapes
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-a16e", "gemma-2b",
-                                  "mamba2-780m", "zamba2-1.2b"])
+                                  "mamba2-780m", "zamba2-1.2b", "whisper-small"])
 def test_param_shapes_match_jax_at_full_size(arch):
     """Names, shapes and dtypes leaf for leaf on the meta device, at full
     size; an MoE router stays float32 under bf16, in the parameters and in
@@ -461,8 +475,9 @@ def test_prefill_and_decode_match_jax_and_the_forward(arch, monkeypatch):
     assert np.asarray(jl)[..., :jcfg.vocab_size].std() > 0.1
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **MODEL_TOL)
     kv_rows = jcfg.num_layers if jcfg.hybrid is None else jcfg.num_layers // jcfg.hybrid.shared_every
-    want_keys = {"ssm": {"state", "conv"}, "hybrid": {"state", "conv", "k", "v"}}
-    assert set(tc) == set(jc) == want_keys.get(jcfg.family, set(KV_KEYS))
+    want_keys = {"ssm": {"state", "conv"}, "hybrid": {"state", "conv", "k", "v"},
+                 "audio": {"self_k", "self_v", "cross_k", "cross_v"}}
+    assert set(tc) == set(jc) == want_keys.get(jcfg.family, {"k", "v"})
     for name in jc:
         want = np.asarray(jc[name])
         assert tc[name].shape == want.shape and tc[name].dtype == torch.float32
@@ -562,7 +577,10 @@ def test_launchers_run_the_family_on_cpu_without_jax_or_repro(arch, tmp_path):
     assert sorted(os.listdir(tmp_path / "ck" / arch))[-1] == "ckpt_00000002.thallus"
 
 
-def test_serve_launcher_refuses_the_vlm_as_jax_does(tmp_path):
-    out = _run_blocked(tmp_path, "repro_torch.launch.serve", "--arch", "internvl2-76b",
+@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-small"])
+def test_serve_launcher_refuses_the_vlm_as_jax_does(tmp_path, arch):
+    """The vlm and the audio family need front-end inputs that the serve
+    launcher does not make, in either package."""
+    out = _run_blocked(tmp_path, "repro_torch.launch.serve", "--arch", arch,
                        "--reduced", "--device", "cpu")
     assert out.returncode != 0 and "vlm/audio need frontend inputs" in out.stderr

@@ -724,3 +724,60 @@ def test_reduced_zamba2_prefill_through_the_kernel_matches_the_plain_attention(c
         torch.testing.assert_close(logits.cpu(), want_logits, **ATT_TOL)
         for name in cache:
             torch.testing.assert_close(cache[name].cpu(), want_cache[name].cpu(), **ATT_TOL)
+
+
+def _perturbed_whisper_params(cfg, device):
+    """whisper's params drawn on the CPU (seed 0) with every layer norm's
+    ``w`` set to 1 + 0.1 N(0, 1) and ``b`` to 0.1 N(0, 1) (seed 1), on
+    ``device``."""
+    from repro_torch.models import encdec, init_params
+
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for node in encdec.layer_norm_nodes(params):
+        node["w"] = 1 + 0.1 * torch.randn(node["w"].shape, generator=g)
+        node["b"] = 0.1 * torch.randn(node["b"].shape, generator=g)
+    return _map(lambda t: t.to(device), params)
+
+
+def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
+    """whisper-small reduced on the card: prefill with the encoder's
+    self-attention (non-causal), the decoder's (causal) and its
+    cross-attention (non-causal, 40 queries over 24 frames) in the kernel,
+    ``Le + 2 Ld`` launches (3 x 12 = 36 at full size); a decode step, which
+    launches nothing; the loss (``remat="full"``). Each against the same on
+    the CPU (the plain attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import shift_labels
+    from repro_torch.models import decode, loss_fn, prefill
+
+    cfg = get_config("whisper-small").reduced()
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randn(3, cfg.encdec.encoder_seq, cfg.d_model, generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 40), generator=g)
+    labels = torch.from_numpy(shift_labels(tokens.numpy()))
+    per_prefill = cfg.encdec.num_encoder_layers + 2 * cfg.num_layers
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = _perturbed_whisper_params(cfg, dev)
+        launches = tattn.flash_attention.launches
+        logits, cache = prefill(cfg, params, {"frames": frames.to(dev), "tokens": tokens.to(dev)})
+        assert tattn.flash_attention.launches == launches + (per_prefill if dev == cuda else 0)
+        grown = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1)) if k.startswith("self") else v
+                 for k, v in cache.items()}
+        launches = tattn.flash_attention.launches
+        step, _ = decode(cfg, params, grown, tokens[:, :1].to(dev), 40)
+        assert tattn.flash_attention.launches == launches
+        loss = loss_fn(cfg, params, {"frames": frames.to(dev), "tokens": tokens.to(dev),
+                                     "labels": labels.to(dev)})
+        out[dev.type] = (logits.cpu(), {k: v.cpu() for k, v in cache.items()}, step.cpu(),
+                         float(loss))
+    (logits, cache, step, loss), (want_logits, want_cache, want_step, want_loss) = \
+        out["cuda"], out["cpu"]
+    assert want_logits[..., :cfg.vocab_size].std() > 0.1
+    torch.testing.assert_close(logits, want_logits, **ATT_TOL)
+    torch.testing.assert_close(step, want_step, **ATT_TOL)
+    assert sorted(cache) == ["cross_k", "cross_v", "self_k", "self_v"]
+    for name in cache:
+        torch.testing.assert_close(cache[name], want_cache[name], **ATT_TOL)
+    assert loss == pytest.approx(want_loss, rel=1e-5)

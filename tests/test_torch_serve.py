@@ -43,10 +43,10 @@ from repro.models import prefill as jax_prefill
 from repro.serving import Batcher as JaxBatcher
 from repro.serving import Request as JaxRequest
 from repro.serving import completions_to_batch as jax_completions_to_batch
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import attention as tattn
 from repro_torch.launch.serve import make_requests, serve
-from repro_torch.models import (decode, init_cache, init_params, layers as tlayers,
+from repro_torch.models import (FAMILIES, decode, init_cache, init_params, layers as tlayers,
                                 params_from_numpy, params_to_numpy, prefill)
 from repro_torch.serving import Batcher, Request, completions_to_batch
 
@@ -172,11 +172,26 @@ def test_params_numpy_round_trip(model):
     assert tparams["layers"]["mlp"]["wg"].device.type == "cpu"
 
 
-def test_other_families_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        init_params(get_config("whisper-small").reduced(), torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        prefill(get_config("whisper-small").reduced(), {}, {"tokens": torch.zeros(1, 2)})
+def test_families_cover_every_config_and_whisper_prefills():
+    """The port's model API takes the family of every config (the audio
+    family was the last to land, ROADMAP item 8f), and the reduced
+    whisper-small runs ``init_params``, ``prefill`` and a decode step
+    through it: logits over the prompt, the self and cross caches."""
+    assert {get_config(arch).family for arch in ARCH_IDS} <= set(FAMILIES)
+    cfg = get_config("whisper-small").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, cfg.encdec.encoder_seq, cfg.d_model, generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 5), generator=g)
+    logits, cache = prefill(cfg, params, {"frames": frames, "tokens": tokens})
+    assert logits.shape == (2, 5, cfg.padded_vocab) and torch.isfinite(logits).all()
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        "self_k": (4, 2, 5, 4, 16), "self_v": (4, 2, 5, 4, 16),
+        "cross_k": (4, 2, 24, 4, 16), "cross_v": (4, 2, 24, 4, 16)}
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1)) if k.startswith("self") else v
+             for k, v in cache.items()}
+    step, _ = decode(cfg, params, cache, tokens[:, :1], 5)
+    assert step.shape == (2, 1, cfg.padded_vocab) and torch.isfinite(step).all()
 
 
 # ---------------------------------------------------------------- model

@@ -41,11 +41,11 @@ from repro.training import init_train_state as jax_init_train_state
 from repro.training import lr_at as jax_lr_at
 from repro.training import make_train_step as jax_make_train_step
 from repro.training import train_state_shapes as jax_train_state_shapes
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import shift_labels
 from repro_torch.kernels import attention as tattn
-from repro_torch.models import (forward, loss_fn, param_shapes, params_from_numpy,
-                                params_to_numpy, transformer)
+from repro_torch.models import (FAMILIES, forward, init_params, loss_fn, param_shapes,
+                                params_from_numpy, params_to_numpy, transformer)
 from repro_torch.training import (OptimizerConfig, TrainConfig, adamw_update,
                                   global_norm, init_opt_state, init_train_state, lr_at,
                                   make_train_step, train_state_shapes)
@@ -359,14 +359,27 @@ def test_stacked_leaves_get_one_gradient_each(model):
     assert feeds == {n: ["UnbindBackward0"] for n in stacked.values()}
 
 
-def test_forward_and_loss_raise_for_other_families():
-    for arch in ("whisper-small",):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            forward(cfg, {}, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            loss_fn(cfg, {}, {"tokens": torch.zeros(1, 2, dtype=torch.int32),
-                              "labels": torch.zeros(1, 2, dtype=torch.int32)})
+def test_families_cover_every_config_and_whisper_trains():
+    """The port's model API takes the family of every config (the audio
+    family was the last to land, ROADMAP item 8f), and the reduced
+    whisper-small runs ``forward`` and ``loss_fn`` through it, with a
+    gradient in every parameter."""
+    assert {get_config(arch).family for arch in ARCH_IDS} <= set(FAMILIES)
+    cfg = get_config("whisper-small").reduced()
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), generator=g)
+    batch = {"frames": torch.randn(2, cfg.encdec.encoder_seq, cfg.d_model, generator=g),
+             "tokens": tokens, "labels": torch.from_numpy(shift_labels(tokens.numpy()))}
+    leaves, params = _with_grad(init_params(cfg, torch.Generator().manual_seed(0),
+                                            device="cpu"))
+    logits = forward(cfg, params, batch, remat="none")
+    assert logits.shape == (2, 6, cfg.padded_vocab) and torch.isfinite(logits).all()
+    loss = loss_fn(cfg, params, batch)
+    loss.backward()
+    assert float(loss.detach()) > 1.0
+    for name, leaf in leaves.items():
+        assert leaf.grad is not None and torch.isfinite(leaf.grad).all(), name
+        assert leaf.grad.abs().max() > 0, name
 
 
 # ---------------------------------------------------------------- train step
