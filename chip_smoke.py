@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --one-column [DIR]   # see below
+    python3 chip_smoke.py --decode-host DIR    # see below
 
 Phases:
 
@@ -62,11 +63,13 @@ Phases:
    and gemma-2b (MQA, head dim 256, GeGLU, 256000-word vocabulary) at full
    width and depth, float32, serve phase 4's two request sets one model at
    a time, each cohort's prefill held to the plain attention's as in phase
-   4. For olmoe both prefills' routings are recorded: a token may route
-   otherwise only at a near-tie of its k-th and (k+1)-th probabilities (or
-   after an earlier difference), at most 1 % of the tokens may, and the
-   limit holds over the rest; one MoE layer at the long cohort's 4096
-   tokens is also held to the same layer on the CPU. Each cohort's dropped
+   4. For olmoe the plain prefill routes as the kernel prefill did, layer
+   by layer (its experts and capacity's keep mask forced): its own top-k
+   may differ from the forced one only at a near-tie of the k-th and
+   (k+1)-th probabilities, and every token is held to the limit; an
+   unforced plain prefill's count of tokens routed otherwise is printed,
+   with no limit. One MoE layer at the long cohort's 4096 tokens is also
+   held to the same layer on the CPU. Each cohort's dropped
    (token, expert) pairs and a profile of one prefill and one decode step
    (products, flash, MoE dispatch, other, idle share) are printed;
 8. the SSM families: mamba2-780m (48 Mamba2 layers, no attention) and
@@ -104,7 +107,20 @@ Phases:
    through the kernel to the plain attention's. ``[serve]`` lines give
    tok/s, prefill ms with the encoder's share, decode ms, the peak memory,
    and a profile of one prefill per set and one decode step;
-10. report: a ``{"kernels": [...]}`` line, the card line, and last the
+10. the mesh: a one-rank NCCL process group (an in-process ``HashStore``)
+   and its ``make_host_mesh()``, (1, 1); granite-3-2b at full width and
+   depth as phase 4 seeds it, its parameters DTensors by ``param_specs``,
+   serves phase 4's two request sets through ``launch.serve.serve(...,
+   mesh=)``: the served tokens must be phase 4's, flash launch once per
+   layer per cohort (through ``local_map``), and each cohort's prefill
+   logits and cache lie within the serve limit of the same prefill on
+   plain tensors. A decode step's host ms and kernel launches on DTensors
+   and on plain tensors (the host cost of DTensor dispatch); the (c) 8 x
+   128 loss and gradients on DTensors against plain tensors at phase 5's
+   limits, then one AdamW step on a DTensor train state;
+   ``compressed_psum_pod`` over a one-pod mesh bit for bit against
+   ``compress_decompress``;
+11. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any mismatch raises: the script then exits non-zero and prints no result
@@ -115,10 +131,17 @@ line. It also fails without a CUDA card, and outside a checkout.
 without a synchronize) of this checkout's port and, with DIR, of the port
 in checkout DIR (a parent commit unpacked under ``build/``, say), the two
 in turns in one process, and prints the rows as its last line.
+
+``--decode-host DIR`` only times phase 2's plain decode step (granite-3-2b
+at full width and depth, 4 rows at position 4, plain tensors, no process
+group) through the port in checkout DIR and through this one, in turns in
+one process on the same weights and cache, and prints the rows as its last
+line: the host cost of the models' sharding hooks where no mesh is in use.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -1024,48 +1047,74 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-# An MoE token's routing is held to another run's only where its k-th and
-# (k+1)-th router probabilities lie more than ROUTE_GAP apart, relative to
-# the k-th: the kernel and the plain attention differ by ~1e-6, which moves a
+# The kernel prefill's MoE routing is forced on the plain prefill, layer by
+# layer (:class:`ForcedRoutes`), so that both runs mix the same experts and
+# their logits and caches differ by the attention's rounding alone. In the
+# forced run each layer's own top-k, from its own router probabilities, may
+# differ from the forced one only where its k-th and (k+1)-th probabilities
+# lie within ROUTE_GAP of each other, relative to the k-th (in either run):
+# the kernel and the plain attention differ by ~1e-6, which moves a
 # probability by a few 1e-6 and can swap two experts that tie to within it.
-# A swapped expert moves its token's output by ~1/k of an expert's output,
-# and through attention, capacity and later layers other tokens' a little.
 ROUTE_GAP = 1e-5
-# At most this share of a prefill's tokens may route otherwise, in some
-# layer, through the kernel than through the plain attention.
-FLIP_SHARE = 0.01
 # One MoE layer on the card against the same layer on the CPU from the same
 # input: the CPU tests' LAYER_TOL, |card - cpu| <= tol + tol |cpu|.
 MOE_LAYER_TOL = 3e-5
 
 
+def _gaps(xt, router, k: int):
+    """Each token's gap between its k-th and (k+1)-th router probabilities,
+    relative to the k-th."""
+    probs = torch.softmax(torch.einsum("td,de->te", xt.float(), router.float()), -1)
+    top = torch.sort(probs, -1, descending=True).values
+    return probs, (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+
+
 class RouteRecorder:
     """While active, records every routing of the port's MoE layers (the
     ``moe.route`` that ``_dispatch_one_group`` calls) and, for each, every
-    token's gap between its k-th and (k+1)-th router probabilities,
-    relative to the k-th."""
+    token's gap between its k-th and (k+1)-th router probabilities."""
 
     def __enter__(self):
         from repro_torch.models import moe
         self.routes, self.gaps = [], []
         self._moe, self._route = moe, moe.route
-
-        def recording(xt, router, m, C):
-            r = self._route(xt, router, m, C)
-            probs = torch.softmax(torch.einsum("td,de->te", xt.float(), router.float()), -1)
-            top = torch.sort(probs, -1, descending=True).values
-            self.routes.append(r)
-            self.gaps.append((top[:, m.top_k - 1] - top[:, m.top_k]) / top[:, m.top_k - 1])
-            return r
-
-        moe.route = recording
+        moe.route = self.route
         return self
+
+    def route(self, xt, router, m, C):
+        r = self._route(xt, router, m, C)
+        self.routes.append(r)
+        self.gaps.append(_gaps(xt, router, m.top_k)[1])
+        return r
 
     def __exit__(self, *exc):
         self._moe.route = self._route
 
     def dropped(self) -> int:
         return sum(int((~r.keep).sum()) for r in self.routes)
+
+
+class ForcedRoutes(RouteRecorder):
+    """While active, every MoE layer routes as the recorded run ``forced``
+    did, call for call: its experts, their order and capacity's keep mask;
+    the gate weights are this run's own router probabilities at those
+    experts, renormalised. Records this run's own routing (what it would
+    have chosen) and gaps, as :class:`RouteRecorder` does."""
+
+    def __init__(self, forced: RouteRecorder):
+        self.forced = forced
+
+    def route(self, xt, router, m, C):
+        own = super().route(xt, router, m, C)
+        r = self.forced.routes[len(self.routes) - 1]
+        if r.gate_ids.shape != own.gate_ids.shape:
+            raise AssertionError(f"forced routing {len(self.routes) - 1} is for "
+                                 f"{tuple(r.gate_ids.shape)}, the layer routes "
+                                 f"{tuple(own.gate_ids.shape)}")
+        probs = _gaps(xt, router, m.top_k)[0]
+        gate_w = probs.gather(-1, r.gate_ids)
+        gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        return dataclasses.replace(r, gate_w=gate_w, w_sorted=gate_w.reshape(-1)[r.sort_idx])
 
 
 def token_routing(r):
@@ -1078,46 +1127,52 @@ def token_routing(r):
     return ids, keep.view(r.gate_ids.shape).gather(-1, order)
 
 
-def compare_routings(kernel: RouteRecorder, plain: RouteRecorder, where: str) -> dict:
-    """Two prefills' routings, layer by layer. Returns the tokens routed
-    otherwise in some layer (``differ``, (T,) bool) and the counts of
-    flipped (token, layer)s (another set of experts). Raises on a flip that is not
-    at a near-tie (gap under ROUTE_GAP in either run) unless a routing had
-    already differed in an earlier layer: from there on the two runs' inputs
-    differ by more than the attention's rounding, and the first flip is the
-    one the kernel can be held to."""
-    differ, flips, near, earlier = None, 0, 0, False
-    for layer, (rk, rp, gk, gp) in enumerate(zip(kernel.routes, plain.routes,
-                                                 kernel.gaps, plain.gaps)):
-        (ik, kk), (ip, kp) = token_routing(rk), token_routing(rp)
-        gate = (ik != ip).any(-1)
-        tie = torch.minimum(gk, gp) < ROUTE_GAP
-        if not earlier and (gate & ~tie).any():
-            t = int(torch.nonzero(gate & ~tie)[0])
-            raise AssertionError(f"{where}: layer {layer} token {t} routed {ik[t].tolist()} "
-                                 f"through the kernel, {ip[t].tolist()} through the plain "
-                                 f"attention, at a gap of {float(torch.minimum(gk, gp)[t]):.3e} "
-                                 f"(limit {ROUTE_GAP}), with no earlier difference")
-        layer_differ = gate | (kk != kp).any(-1)
-        differ = layer_differ if differ is None else differ | layer_differ
+def check_forced_routing(kernel: RouteRecorder, forced: ForcedRoutes, where: str) -> dict:
+    """The forced plain run's own top-k against the kernel's, layer by
+    layer: every token whose own experts differ sits at a near-tie (gap
+    under ROUTE_GAP in either run), in every layer, or this raises. Returns
+    the count of such (token, layer) flips."""
+    flips = 0
+    for layer, (rk, rp, gk, gp) in enumerate(zip(kernel.routes, forced.routes,
+                                                 kernel.gaps, forced.gaps)):
+        gate = (token_routing(rk)[0] != token_routing(rp)[0]).any(-1)
+        far = gate & ~(torch.minimum(gk, gp) < ROUTE_GAP)
+        if far.any():
+            t = int(torch.nonzero(far)[0])
+            raise AssertionError(
+                f"{where}: layer {layer} token {t} chose {token_routing(rp)[0][t].tolist()} in the "
+                f"forced plain run, {token_routing(rk)[0][t].tolist()} through the kernel, at a "
+                f"gap of {float(torch.minimum(gk, gp)[t]):.3e} (limit {ROUTE_GAP})")
         flips += int(gate.sum())
-        near += int((gate & tie).sum())
-        earlier = earlier or bool(layer_differ.any())
-    return {"differ": differ, "flips": flips, "flips_at_near_ties": near,
-            "tokens_routed_otherwise": int(differ.sum())}
+    if len(kernel.routes) != len(forced.routes):
+        raise AssertionError(f"{where}: {len(kernel.routes)} routings through the kernel, "
+                             f"{len(forced.routes)} in the forced plain run")
+    return {"flips_at_near_ties": flips}
+
+
+def routed_otherwise(a: RouteRecorder, b: RouteRecorder) -> int:
+    """Tokens whose experts or kept pairs differ between two runs in some
+    layer."""
+    differ = None
+    for ra, rb in zip(a.routes, b.routes):
+        (ia, ka), (ib, kb) = token_routing(ra), token_routing(rb)
+        d = (ia != ib).any(-1) | (ka != kb).any(-1)
+        differ = d if differ is None else differ | d
+    return int(differ.sum())
 
 
 def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
     """Each cohort's prefill through the kernel (rerun on the cohort's
     tokens) against a prefill through the plain attention, swapped in here
-    and restored, over the logits and every cache leaf (an SSM's state and
-    conv taps too); the kernel rerun's greedy first tokens are the served
-    ones, it launches the kernel once per K/V row of its cache (per layer,
-    or per shared-block call), and the plain rerun never. An SSM without
-    attention has no plain rerun. For an MoE config both runs' routings are recorded: at most
-    FLIP_SHARE of the tokens may route otherwise, each first flip at a
-    near-tie (:func:`compare_routings`), and the limit holds over the tokens
-    routed alike; the rerun's dropped (token, expert) pairs are counted.
+    and restored, over every token's logits and every cache leaf (an SSM's
+    state and conv taps too); the kernel rerun's greedy first tokens are the
+    served ones, it launches the kernel once per K/V row of its cache (per
+    layer, or per shared-block call), and the plain reruns never. An SSM
+    without attention has no plain rerun. For an MoE config the plain rerun
+    routes as the kernel rerun did (:class:`ForcedRoutes`), its own choices
+    differing only at near-ties (:func:`check_forced_routing`); an unforced
+    plain rerun's count of tokens routed otherwise is printed, with no
+    limit, and the kernel rerun's dropped (token, expert) pairs are counted.
     The first cohort's prefill and one decode step are also profiled into
     ``prof``."""
     from repro_torch.kernels.attention import flash_attention, flash_gqa_ref
@@ -1139,37 +1194,38 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
         if greedy != served:
             raise AssertionError(f"{label} cohort {i}: rerun first tokens {greedy} != served {served}")
         rid += len(toks)
+        routing = {}
         if kv_rows == 0:   # no attention: nothing to swap
-            want_logits, want_cache, plain_routes = logits, cache, kernel_routes
+            want_logits, want_cache = logits, cache
         else:
             kernel_fn = transformer.flash_gqa
             transformer.flash_gqa = flash_gqa_ref
             before = flash_attention.launches
             try:
-                with RouteRecorder() as plain_routes:
+                if cfg.moe is None:
                     want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
+                else:
+                    with ForcedRoutes(kernel_routes) as forced:
+                        want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
+                    with RouteRecorder() as unforced:
+                        prefill(cfg, params, {"tokens": tokens})
             finally:
                 transformer.flash_gqa = kernel_fn
             launches["plain_rerun"] = flash_attention.launches - before
             if launches["plain_rerun"]:
                 raise AssertionError(f"{label} cohort {i}: the plain rerun launched the flash "
                                      f"kernel {launches['plain_rerun']} times")
-        routing = {}
-        alike = torch.ones(toks.shape, dtype=torch.bool, device=tokens.device)
-        if cfg.moe is not None:
-            routing = compare_routings(kernel_routes, plain_routes, f"{label} cohort {i}")
-            alike = ~routing.pop("differ").view(toks.shape)
-            routing["dropped_pairs"] = kernel_routes.dropped()
-            routing["pairs"] = toks.size * cfg.moe.top_k * cfg.num_layers
-            if routing["tokens_routed_otherwise"] > FLIP_SHARE * toks.size:
-                raise AssertionError(f"{label} cohort {i}: {routing} routed otherwise, more "
-                                     f"than {FLIP_SHARE} of {toks.size} tokens")
-        del kernel_routes, plain_routes
-        rows = slice(None) if bool(alike.all()) else alike  # a view where all agree
+            if cfg.moe is not None:
+                routing = check_forced_routing(kernel_routes, forced, f"{label} cohort {i}")
+                routing["unforced_tokens_routed_otherwise"] = routed_otherwise(kernel_routes,
+                                                                               unforced)
+                routing["dropped_pairs"] = kernel_routes.dropped()
+                routing["pairs"] = toks.size * cfg.moe.top_k * cfg.num_layers
+                del forced, unforced
+        del kernel_routes
         real, want_real = logits[..., :cfg.vocab_size], want_logits[..., :cfg.vocab_size]
-        errs = {"logits": rel_err(real[rows], want_real[rows]),
-                **{name: rel_err(cache[name][:, rows], want_cache[name][:, rows])
-                   for name in cache}} if kv_rows else {}
+        errs = {"logits": rel_err(real, want_real),
+                **{name: rel_err(cache[name], want_cache[name]) for name in cache}} if kv_rows else {}
         std = float(want_real.std())
         if not torch.equal(logits[..., cfg.vocab_size:], want_logits[..., cfg.vocab_size:]):
             raise AssertionError(f"{label} cohort {i}: padded vocabulary not masked alike")
@@ -1191,10 +1247,11 @@ def check_cohorts(cfg, params, label, res, prof: dict) -> list[dict]:
                 lambda: decode(cfg, params, grown, step, toks.shape[1]))
             del grown
         moe_note = "" if not routing else (
-            f"; routing: {routing['dropped_pairs']} of {routing['pairs']} (token, expert) pairs "
-            f"dropped by capacity, {routing['flips']} flips ({routing['flips_at_near_ties']} at "
-            f"near-ties), {routing['tokens_routed_otherwise']} tokens routed otherwise "
-            f"(limit {FLIP_SHARE} of {toks.size}), errors over the rest")
+            f"; routing forced on the plain rerun: {routing['dropped_pairs']} of "
+            f"{routing['pairs']} (token, expert) pairs dropped by capacity, "
+            f"{routing['flips_at_near_ties']} (token, layer)s whose own experts differ, all at "
+            f"near-ties (gap < {ROUTE_GAP}); unforced, {routing['unforced_tokens_routed_otherwise']}"
+            f" of {toks.size} tokens routed otherwise (no limit)")
         compared = "no attention, no plain rerun" if not errs else (
             "kernel vs plain prefill max rel err "
             + " ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (limit {SERVE_REL})")
@@ -1521,6 +1578,7 @@ def phase_serve(dev, cfg, wrappers) -> dict:
             f"{len(row['decode_ms'])} steps) smi={gpu_state()}")
         for c in res.completions[:4]:
             log(f"[serve] {cfg.name} {label} req {c.request_id}: {c.tokens} smi={gpu_state()}")
+        row["served"] = [c.tokens for c in res.completions]
         out["sets"][label] = row
     log(f"[serve] {cfg.name}: launches in the serve phase: {launches}; "
         f"torch.cuda.max_memory_allocated {peak} B smi={gpu_state()}")
@@ -2331,6 +2389,252 @@ def phase_gateway(dev, cfg, wrappers, card, plain: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- mesh
+MESH_SETS = ("a_defaults", "b_long_prompts")
+MESH_TRAIN = (8, 128)          # phase 5's (c) shape
+
+
+def one_rank_group(dev):
+    """A one-rank NCCL process group from an in-process ``HashStore`` (no
+    network, no port) and its ``make_host_mesh()``, which must be (1, 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    mesh = make_host_mesh()
+    if tuple(mesh.mesh.shape) != (1, 1) or mesh.mesh_dim_names != ("data", "model"):
+        raise AssertionError(f"make_host_mesh on one rank gave {mesh}")
+    return mesh
+
+
+def mesh_serve(cfg, params, dparams, mesh, served: dict, wrappers, dev) -> dict:
+    """Phase 2's request sets served through ``launch.serve.serve`` on the
+    DTensor parameters under the mesh: the same tokens, flash once per layer
+    per cohort. Then each cohort's prefill on DTensors against the same
+    prefill on plain tensors, logits and every cache leaf within SERVE_REL
+    (bit for bit expected: a (1, 1) mesh runs every op on the whole
+    tensor)."""
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import prefill
+    from repro_torch.models.sharding import make_rules, mesh_context
+    sets = {"a_defaults": (make_requests(cfg, 8, 12, 8), 4),
+            "b_long_prompts": (make_requests(cfg, 4, 1024, 8, min_len=900, seed=1), 4)}
+    serve(cfg, dparams, make_requests(cfg, 1, 4, 2, seed=2), 1, dev, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    wrappers["flash_attention"].launches = 0
+    results = {label: serve(cfg, dparams, reqs, bs, dev, mesh=mesh)
+               for label, (reqs, bs) in sets.items()}
+    launches = wrappers["flash_attention"].launches
+    cohorts = sum(len(r.cohort_tokens) for r in results.values())
+    if launches != cohorts * cfg.num_layers:
+        raise AssertionError(f"mesh serve: flash launched {launches} times, expected "
+                             f"{cohorts} cohorts x {cfg.num_layers} layers")
+    out = {"flash_launches": launches, "sets": {}}
+    for label, res in results.items():
+        got = [c.tokens for c in res.completions]
+        if got != served[label]:
+            raise AssertionError(f"mesh serve {label}: tokens {got} != phase 2's {served[label]}")
+        errs, exact = [], True
+        for toks in res.cohort_tokens:
+            tokens = torch.from_numpy(toks).to(dev)
+            want_logits, want_cache = prefill(cfg, params, {"tokens": tokens})
+            with mesh_context(mesh, make_rules(cfg, mesh)):
+                logits, cache = prefill(cfg, dparams, {"tokens": tokens})
+            logits = logits.full_tensor()
+            cache = {k: v.full_tensor() for k, v in cache.items()}
+            e = {"logits": rel_err(logits[..., :cfg.vocab_size],
+                                   want_logits[..., :cfg.vocab_size]),
+                 **{k: rel_err(cache[k], want_cache[k]) for k in want_cache}}
+            exact = exact and torch.equal(logits, want_logits) and all(
+                torch.equal(cache[k], want_cache[k]) for k in want_cache)
+            bad = {k: v for k, v in e.items() if not v <= SERVE_REL}
+            if bad:
+                raise AssertionError(f"mesh serve {label} cohort {tuple(toks.shape)}: DTensor vs "
+                                     f"plain prefill beyond {SERVE_REL}: {bad}")
+            errs.append(e)
+            del want_logits, want_cache, logits, cache
+        decode_ms = [x * 1e3 for x in res.decode_s]
+        out["sets"][label] = {"tokens": res.num_tokens, "seconds": res.seconds,
+                              "tokens_per_s": res.num_tokens / res.seconds,
+                              "prefill_ms": [x * 1e3 for x in res.prefill_s],
+                              "decode_ms_median": statistics.median(decode_ms),
+                              "prefill_vs_plain": errs, "bit_equal": exact}
+        log(f"[mesh] {cfg.name} {label} on DTensors: {res.num_tokens} tokens equal to phase 2's in "
+            f"{res.seconds:.4f} s ({res.num_tokens / res.seconds:.3f} tok/s); prefill ms "
+            f"{[round(x * 1e3, 3) for x in res.prefill_s]}; decode ms per step median "
+            f"{statistics.median(decode_ms):.3f}; prefill vs plain tensors max rel err "
+            f"{max(max(e.values()) for e in errs):.3e} (limit {SERVE_REL}), bit for bit "
+            f"{exact} smi={gpu_state()}")
+    return out
+
+
+def mesh_decode_cost(cfg, params, dparams, mesh, dev) -> dict:
+    """One decode step of set (a)'s shape on plain tensors and on DTensors:
+    host ms (median of 9, each to a synchronize) and device kernels
+    launched (a profiler window). The gap is DTensor's dispatch on the
+    host, which every rank of a many-card run pays."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import decode, init_cache, prefill
+    from repro_torch.models.sharding import make_rules, mesh_context
+    toks = np.stack([r.prompt[:4] for r in make_requests(cfg, 4, 12, 8)])
+    tokens = torch.from_numpy(toks).to(dev)
+    step = tokens[:, -1:]
+    out = {}
+    for name, p, ctx in (("plain", params, None), ("dtensor", dparams, mesh)):
+        def run():
+            if ctx is None:
+                return decode(cfg, p, grown, step, 4)
+            with mesh_context(ctx, make_rules(cfg, ctx)):
+                return decode(cfg, p, grown, step, 4)
+        cache = prefill(cfg, params, {"tokens": tokens})[1]
+        grown = init_cache(cfg, 4, 5, dtype=torch.float32, device=dev)
+        for k in grown:
+            grown[k][:, :, :4] = cache[k]
+        if ctx is not None:
+            from repro_torch.models import cache_pspecs, shard_params
+            grown = shard_params(grown, cache_pspecs(cfg, grown, ctx), ctx)
+        run()
+        ms = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        prof = profile_device(f"{cfg.name} decode step on {name} tensors", run)
+        out[name] = {"host_ms": statistics.median(ms),
+                     "launches": sum(v for k, v in prof.items() if k.endswith("_launches")),
+                     "device_busy_ms": prof["device_busy_ms"]}
+        del cache, grown
+    log(f"[mesh] {cfg.name} decode step (4 rows at position 4): plain tensors "
+        f"{out['plain']['host_ms']:.3f} ms host, {out['plain']['launches']} kernel launches; "
+        f"DTensors {out['dtensor']['host_ms']:.3f} ms host, {out['dtensor']['launches']} "
+        f"kernel launches smi={gpu_state()}")
+    return out
+
+
+def mesh_train(cfg, params, dparams, mesh, dev) -> dict:
+    """(c) 8 x 128: the loss and gradient on DTensors under the mesh against
+    the same on plain tensors, phase 5's limits (loss TRAIN_LOSS_REL, each
+    gradient leaf SERVE_REL x max |plain leaf|); then one whole train step
+    (AdamW) on a DTensor train state, whose loss is held to the plain loss
+    too."""
+    from repro_torch.models.sharding import make_rules, mesh_context
+    from repro_torch.training import (OptimizerConfig, TrainConfig, global_norm,
+                                      init_opt_state, make_train_step)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(0, cfg.vocab_size, (MESH_TRAIN[0], MESH_TRAIN[1] + 1)).astype(np.int64)
+    tokens = torch.from_numpy(toks[:, :-1].copy()).to(dev)
+    labels = torch.from_numpy(toks[:, 1:].copy()).to(dev)
+    batch = {"tokens": tokens, "labels": labels}
+    want_loss, want = train_grads(cfg, params, batch, "none")
+    want_norm = float(global_norm(want))
+    with mesh_context(mesh, make_rules(cfg, mesh)):
+        loss, grads = train_grads(cfg, dparams, batch, "none")
+    loss_err = abs(float(loss.full_tensor()) - float(want_loss)) / abs(float(want_loss))
+    errs = {}
+    for name, w in want.items():
+        g = grads[name].full_tensor() if hasattr(grads[name], "full_tensor") else grads[name]
+        errs[name] = float((g - w).abs().max()) / float(w.abs().max())
+    worst = max(errs, key=errs.get)
+    del want, grads
+    if not loss_err <= TRAIN_LOSS_REL or errs[worst] > SERVE_REL:
+        raise AssertionError(f"mesh train: DTensor vs plain loss rel err {loss_err:.3e} (limit "
+                             f"{TRAIN_LOSS_REL}), worst gradient {worst} {errs[worst]:.3e} "
+                             f"(limit {SERVE_REL})")
+    tc = TrainConfig(optimizer=OptimizerConfig(**TRAIN_OPT), remat="none")
+    state = {"params": dparams, "opt": init_opt_state(tc.optimizer, dparams),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if tuple(state["opt"]["m"]["embed"].placements) != tuple(dparams["embed"].placements):
+        raise AssertionError("optimizer state not placed like the parameters")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with mesh_context(mesh, make_rules(cfg, mesh)):
+        state, metrics = make_train_step(cfg, tc)(state, batch)
+        step_loss = float(metrics["loss"].full_tensor())
+        gnorm = float(metrics["grad_norm"].full_tensor())
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    step_err = abs(step_loss - float(want_loss)) / abs(float(want_loss))
+    norm_err = abs(gnorm - want_norm) / want_norm
+    if not step_err <= TRAIN_LOSS_REL or not norm_err <= SERVE_REL:
+        raise AssertionError(f"mesh train step: loss rel err {step_err:.3e} (limit "
+                             f"{TRAIN_LOSS_REL}), gradient norm rel err {norm_err:.3e} "
+                             f"(limit {SERVE_REL})")
+    out = {"loss": float(loss.full_tensor()), "plain_loss": float(want_loss),
+           "loss_rel_err": loss_err, "worst_grad": worst, "worst_grad_rel_err": errs[worst],
+           "step_loss": step_loss, "grad_norm": gnorm, "plain_grad_norm": want_norm,
+           "step_s": step_s, "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[mesh] {cfg.name} train {MESH_TRAIN[0]} x {MESH_TRAIN[1]} on DTensors: loss "
+        f"{out['loss']:.6f} vs plain {out['plain_loss']:.6f} (rel err {loss_err:.3e}, limit "
+        f"{TRAIN_LOSS_REL}); worst gradient {worst} rel err {errs[worst]:.3e} (limit "
+        f"{SERVE_REL}); one AdamW step on the DTensor state in {step_s:.4f} s, its loss "
+        f"{step_loss:.6f}, gradient norm {gnorm:.6f} vs plain {want_norm:.6f}; peak "
+        f"{out['peak_bytes']} B smi={gpu_state()}")
+    del state, metrics
+    return out
+
+
+def mesh_pod_reduce(dev) -> dict:
+    """``compressed_psum_pod`` over a one-pod mesh against
+    ``compress_decompress``, bit for bit: at one pod the payload is the
+    pod's own int8 values and the mean scale its own scale."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import compress_decompress, compressed_psum_pod
+    pod = make_mesh((1,), ("pod",))
+    g = torch.Generator(device=dev).manual_seed(3)
+    grads = {"embed": torch.randn((49152, 2048), generator=g, device=dev),
+             "ln": torch.randn((2048,), generator=g, device=dev) * 1e-3}
+    ef = {k: 1e-2 * torch.randn(v.shape, generator=g, device=dev) for k, v in grads.items()}
+    mean, new_ef = compressed_psum_pod(grads, ef, pod)
+    for k in grads:
+        deq, want_ef = compress_decompress(grads[k], ef[k])
+        same_bits(f"compressed_psum_pod {k} mean", mean[k], deq)
+        same_bits(f"compressed_psum_pod {k} error feedback", new_ef[k], want_ef)
+    log(f"[mesh] compressed_psum_pod over a one-pod mesh equals compress_decompress bit for "
+        f"bit on {sum(v.numel() for v in grads.values())} elements smi={gpu_state()}")
+    return {"elements": sum(v.numel() for v in grads.values()), "bit_equal": True}
+
+
+def phase_mesh(dev, wrappers, serve_out: dict) -> dict:
+    """Phase 10: granite-3-2b at full width and depth served and trained as
+    DTensors on the one-rank mesh, against phase 2's tokens and the same
+    calls on plain tensors; the cross-pod reduce at one pod; the host cost
+    of DTensor dispatch in a decode step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import param_specs, shard_params
+    t0 = time.perf_counter()
+    mesh = one_rank_group(dev)
+    try:
+        cfg = get_config(ARCH)
+        params = perturbed_params(cfg, dev)
+        dparams = shard_params(params, param_specs(cfg, params, mesh), mesh)
+        torch.cuda.synchronize()
+        log(f"[mesh] {cfg.name}: parameters placed by param_specs on mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} in "
+            f"{time.perf_counter() - t0:.2f} s; embed {dparams['embed'].placements}, "
+            f"torch.cuda.memory_allocated {torch.cuda.memory_allocated()} B smi={gpu_state()}")
+        served = {label: serve_out["sets"][label]["served"] for label in MESH_SETS}
+        out = {"serve": mesh_serve(cfg, params, dparams, mesh, served, wrappers, dev)}
+        launches = out["serve"]["flash_launches"]
+        out["decode_cost"] = mesh_decode_cost(cfg, params, dparams, mesh, dev)
+        torch.cuda.reset_peak_memory_stats()
+        out["train"] = mesh_train(cfg, params, dparams, mesh, dev)
+        del params, dparams
+        torch.cuda.empty_cache()
+        out["pod_reduce"] = mesh_pod_reduce(dev)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["launches"] = {"flash_attention": launches}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase 10 in {out['seconds']:.2f} s smi={gpu_state()}")
+    return out
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2394,17 +2698,82 @@ def one_column(other: Path | None) -> int:
     return 0
 
 
+DECODE_HOST_STEPS = 30         # decode steps per median in --decode-host
+
+
+def decode_host(other: Path) -> int:
+    """``--decode-host DIR``: one decode step of granite-3-2b at full width
+    and depth (float32, :func:`perturbed_params`; 4 rows at position 4, as
+    set (a)'s cohorts) through DIR's port and this one's, in turns (DIR,
+    this, this, DIR), each with its own config object, on the same weights
+    and cache: host ms per step to a synchronize (median of
+    ``DECODE_HOST_STEPS``), as phase 2 times a served step; then the host ms
+    of the call alone, the two in turns call by call (:func:`host_ms`),
+    which is the device time once the launch queue fills. The last line
+    holds both."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(f"[decode-host] nvidia-smi: {smi}")
+    import_port(other, "other_port")
+    pkgs = {"other": "other_port", "this": "repro_torch"}
+    models = {k: importlib.import_module(f"{v}.models") for k, v in pkgs.items()}
+    cfgs = {k: importlib.import_module(f"{v}.configs").get_config(ARCH) for k, v in pkgs.items()}
+    dev = torch.device("cuda")
+    params = perturbed_params(cfgs["this"], dev)
+    cache = models["this"].init_cache(cfgs["this"], 4, 5, dtype=torch.float32, device=dev)
+    step = torch.randint(0, cfgs["this"].vocab_size, (4, 1),
+                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    calls = {k: (lambda k=k: models[k].decode(cfgs[k], params, cache, step, 4)) for k in pkgs}
+    want = calls["other"]()[0]
+    log(f"[decode-host] decode logits, this port against DIR's: max abs difference "
+        f"{float((calls['this']()[0] - want).abs().max())} of max |logit| "
+        f"{float(want.abs().max())}")
+    rows = []
+    for label in ("other", "this", "this", "other"):
+        for _ in range(3):
+            calls[label]()
+        ms = []
+        for _ in range(DECODE_HOST_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            calls[label]()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        tree = str(Path(models[label].__file__).resolve().parents[3])
+        rows.append({"port": label, "tree": tree, "step_ms": statistics.median(ms),
+                     "step_ms_min": min(ms), "step_ms_max": max(ms)})
+        log(f"[decode-host] {label} ({tree}) {ARCH} decode step, 4 rows at position 4, to a "
+            f"synchronize: median {rows[-1]['step_ms']:.3f} ms (min {min(ms):.3f}, max "
+            f"{max(ms):.3f}, {DECODE_HOST_STEPS} steps) smi={gpu_state()}")
+    out = {"decode_host": rows, "call_ms_in_turns": []}
+    for pair in (("other", "this"), ("this", "other")):
+        ms = dict(zip(pair, host_ms(*(calls[k] for k in pair), calls=DECODE_HOST_STEPS)))
+        out["call_ms_in_turns"].append(ms)
+        log(f"[decode-host] host ms per decode call without a synchronize, the two ports in "
+            f"turns ({DECODE_HOST_STEPS} calls each): this {ms['this']:.3f}, "
+            f"other {ms['other']:.3f}")
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--one-column", nargs="?", const=True, type=Path, metavar="DIR",
                     help="only time the one-column take route of this checkout's port and, "
                          "in turns in one process, of the port in checkout DIR")
+    ap.add_argument("--decode-host", type=Path, metavar="DIR",
+                    help="only time phase 2's plain decode step through the port in "
+                         "checkout DIR and this one's, in turns in one process")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
     other = args.one_column.resolve() if isinstance(args.one_column, Path) else None
+    if args.decode_host is not None:
+        other = args.decode_host.resolve()
     for tree in (ROOT, other):
         if tree is not None and not (tree / "src" / "repro_torch").is_dir():
             print(f"chip_smoke: {tree} holds no src/repro_torch; run from a checkout",
@@ -2413,6 +2782,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.one_column:
         return one_column(other)
+    if args.decode_host is not None:
+        return decode_host(other)
     from repro_torch.configs import get_config
     from repro_torch.kernels.attention import attention as attention_mod
     from repro_torch.kernels.pack import pack as pack_mod
@@ -2480,6 +2851,8 @@ def main(argv=None) -> int:
                         for arch, r in ssm_out.items()})
     audio_out = phase_audio(dev, wrappers)
     flash_paths.update({f"{path}_{AUDIO_ARCH}": n for path, n in audio_out["launches"].items()})
+    mesh_out = phase_mesh(dev, wrappers, serve_out)
+    flash_paths["mesh_serve"] = mesh_out["launches"]["flash_attention"]
     launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
@@ -2518,7 +2891,7 @@ def main(argv=None) -> int:
         report.append(row)
     phases = {"slice": slice_out, "serve": serve_out, "train": train_out,
               "gateway": gateway_out, "families": families_out, "ssm": ssm_out,
-              "audio": audio_out}
+              "audio": audio_out, "mesh": mesh_out}
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
         f"phases={json.dumps(phases)}")
     print(json.dumps({"kernels": report}))

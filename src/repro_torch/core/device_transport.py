@@ -12,14 +12,22 @@ tensors. The port of :mod:`repro.core.device_transport`.
 
 Both land identical column tensors, bit for bit. Beyond the JAX version, a
 nullable column also lands its validity bitmap (``DeviceBatch.validity``),
-so its null mask can be expanded on the device. One card has no mesh: the
-JAX version's ``mesh``/``specs`` arguments and ``training_batch_specs`` come
-with the sharding work.
+so its null mask can be expanded on the device.
+
+With a ``mesh`` (a ``DeviceMesh``) and ``specs`` (one spec, or a spec per
+column name; see :mod:`repro_torch.core.placement`), each column lands as
+a DTensor placed by its spec: every rank copies only its own shard to its
+card, so the zero-staging path stays one copy per column buffer. The packed
+baseline lands the whole wire image on every rank (it cannot be
+column-sharded) and cuts each rank's shard out of its column on the device.
+Validity bitmaps stay plain tensors on the mesh's device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ import torch
 from ..device import resolve
 from . import serialize
 from .recordbatch import RecordBatch
+from .placement import from_full, mesh_device, mesh_shape
 
 
 @dataclasses.dataclass
@@ -54,26 +63,39 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
+def _spec(specs, name: str) -> tuple:
+    return specs[name] if isinstance(specs, Mapping) else (specs or ())
+
+
 def batch_to_device(batch: RecordBatch,
-                    device: torch.device | str | None = None) -> DeviceBatch:
-    """Zero-staging path: one host→device copy per column buffer."""
-    dev = resolve(device)
+                    device: torch.device | str | None = None, *, mesh=None,
+                    specs: Mapping[str, tuple] | tuple | None = None) -> DeviceBatch:
+    """Zero-staging path: one host→device copy per column buffer; with a
+    ``mesh``, of this rank's shard of it."""
+    dev = resolve(device) if mesh is None else mesh_device(mesh)
     cols: dict[str, torch.Tensor] = {}
     validity: dict[str, torch.Tensor] = {}
     for field, col in zip(batch.schema, batch.columns):
-        cols[field.name] = torch.from_numpy(_col_array(col)).to(dev)
+        host = torch.from_numpy(_col_array(col))
+        if mesh is None:
+            cols[field.name] = host.to(dev)
+        else:
+            cols[field.name] = from_full(host, mesh, _spec(specs, field.name), dev)
         if col.validity is not None:
             validity[field.name] = torch.from_numpy(col.validity).to(dev)
     return DeviceBatch(cols, batch.num_rows, validity)
 
 
 def batch_to_device_packed(batch: RecordBatch,
-                           device: torch.device | str | None = None) -> DeviceBatch:
-    """Baseline path: pack → single transfer → on-device slice-out."""
+                           device: torch.device | str | None = None, *, mesh=None,
+                           specs: Mapping[str, tuple] | tuple | None = None) -> DeviceBatch:
+    """Baseline path: pack → single transfer → on-device slice-out; with a
+    ``mesh``, the whole wire image on every rank."""
     for col in batch.columns:
         _col_array(col)
     wire = serialize.pack(batch)  # host staging copy (the overhead)
-    dev_wire = torch.from_numpy(wire).to(resolve(device))
+    dev = resolve(device) if mesh is None else mesh_device(mesh)
+    dev_wire = torch.from_numpy(wire).to(dev)
 
     # Recover per-buffer extents on host from the header (metadata only).
     hlen = int(np.frombuffer(wire[:8].tobytes(), np.uint64)[0])
@@ -93,7 +115,16 @@ def batch_to_device_packed(batch: RecordBatch,
         values, _, valid = bufs[bi : bi + 3]
         cols[field.name] = dev_wire.narrow(0, starts[0], values["nbytes"]).view(
             _torch_dtype(np.dtype(values["dtype"])))
+        if mesh is not None:
+            cols[field.name] = from_full(cols[field.name], mesh, _spec(specs, field.name), dev)
         if valid["nbytes"]:
             validity[field.name] = dev_wire.narrow(0, starts[2], valid["nbytes"])
         bi += 3
     return DeviceBatch(cols, batch.num_rows, validity)
+
+
+def training_batch_specs(mesh, batch_axes: tuple[str, ...] = ("pod", "data")) -> tuple:
+    """Canonical spec for token batches: rows split over the data axes."""
+    names = mesh_shape(mesh)
+    axes = tuple(a for a in batch_axes if a in names)
+    return (axes if len(axes) > 1 else (axes[0] if axes else None),)

@@ -1,1 +1,3 @@
-"""Entry points of the port (``python -m repro_torch.launch.<name>``)."""
+"""Entry points of the port (``python -m repro_torch.launch.<name>``, or
+``torchrun --nproc-per-node N -m repro_torch.launch.<name>`` sharded) and
+the meshes they build (:mod:`.mesh`)."""

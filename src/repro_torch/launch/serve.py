@@ -8,15 +8,28 @@ transport.
 The flags are the JAX launcher's, plus ``--device`` (default ``cuda``).
 Weights are drawn from seed 0 as the JAX launcher draws its own, so the norm
 weights are zero, as there (see ROADMAP.md, faults of the reference).
+
+Sharded, one process per card:
+
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.serve \
+        --arch granite-3-2b
+
+With a process group (torchrun's environment, or a caller's
+``init_process_group``) the launcher builds ``make_host_mesh()``, places
+the parameters as DTensors by ``param_specs`` and serves under
+``mesh_context``, as the JAX launcher does under its mesh. Without one it
+runs on the one card with plain tensors, as before.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config
 from ..configs.base import ArchConfig
@@ -24,8 +37,11 @@ from ..core import Fabric, ThallusTransport
 from ..core.recordbatch import RecordBatch
 from ..core.transport import TransportStats
 from ..device import resolve
-from ..models import decode, init_params, prefill
+from ..models import decode, init_params, param_specs, prefill, shard_params
+from ..models.sharding import is_dtensor, make_rules, mesh_context, mesh_device, whole
 from ..serving import Batcher, Completion, Request, completions_to_batch
+from ..training.tree import tree_leaves
+from .mesh import process_group_mesh
 
 
 @dataclasses.dataclass
@@ -70,32 +86,44 @@ def timed_model(cfg: ArchConfig, params, device: torch.device):
 
     def prefill_fn(tokens):
         t = time.perf_counter()
-        out = prefill(cfg, params, {"tokens": tokens})
+        logits, cache = prefill(cfg, params, {"tokens": tokens})
+        logits = whole(logits)           # the batcher reads them on the host
         _sync(device)
         prefill_s.append(time.perf_counter() - t)
-        return out
+        return logits, cache
 
     def decode_fn(cache, tokens, position):
         t = time.perf_counter()
-        out = decode(cfg, params, cache, tokens, position)
+        logits, cache = decode(cfg, params, cache, tokens, position)
+        logits = whole(logits)
         _sync(device)
         decode_s.append(time.perf_counter() - t)
-        return out
+        return logits, cache
 
     return prefill_fn, decode_fn, prefill_s, decode_s
 
 
 def serve(cfg: ArchConfig, params, requests: list[Request], batch_size: int,
-          device=None) -> ServeResult:
+          device=None, *, mesh=None) -> ServeResult:
     """Serve ``requests`` with ``params`` on ``device`` and send the
-    completions through ``ThallusTransport(Fabric())``."""
+    completions through ``ThallusTransport(Fabric())``. With a ``mesh``,
+    the parameters (placed by ``param_specs`` unless they are DTensors
+    already) serve under ``mesh_context(mesh, make_rules(cfg, mesh))`` on
+    this rank's device."""
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        device = mesh_device(mesh)
+        if not is_dtensor(tree_leaves(params)[0]):
+            params = shard_params(params, param_specs(cfg, params, mesh), mesh)
+        ctx = mesh_context(mesh, make_rules(cfg, mesh))
     device = resolve(device)
     prefill_fn, decode_fn, prefill_s, decode_s = timed_model(cfg, params, device)
     batcher = Batcher(prefill_fn, decode_fn, batch_size=batch_size, device=device)
     for r in requests:
         batcher.submit(r)
     t0 = time.perf_counter()
-    completions = batcher.run()
+    with ctx:
+        completions = batcher.run()
     seconds = time.perf_counter() - t0
     delivered, stats = ThallusTransport(Fabric()).send_batch(completions_to_batch(completions))
     return ServeResult(completions, seconds, prefill_s, decode_s, batcher.cohort_tokens,
@@ -123,10 +151,15 @@ def main(argv: list[str] | None = None) -> None:
     # (PyTorch's default; TF32 would keep about three decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(args.device)
+    mesh = process_group_mesh(device)
+    if mesh is not None:
+        device = mesh_device(mesh)
     params = init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
     res = serve(cfg, params, make_requests(cfg, args.requests, args.prompt_len,
                                            args.max_new),
-                args.batch_size, device)
+                args.batch_size, device, mesh=mesh)
+    if mesh is not None and dist.get_rank() != 0:
+        return
     dt = res.seconds
     print(f"served {len(res.completions)} requests, {res.num_tokens} tokens "
           f"in {dt:.2f}s ({res.num_tokens / max(dt, 1e-9):.1f} tok/s) on {device}")

@@ -8,9 +8,23 @@ Data flows: columnar token shards (engine) → Thallus zero-copy transport
 (prefill attention in the flash kernel) → columnar checkpoints
 (``training.checkpoint``). ``--transport rpc`` switches the input pipeline
 to the serialize-based baseline. The flags are the JAX launcher's, plus
-``--device`` (default ``cuda``); mesh and sharding are dropped (ROADMAP
-item 9). Weights are drawn from seed 0, so the norm weights are zero, as in
-the JAX launcher (ROADMAP.md, faults of the reference).
+``--device`` (default ``cuda``). Weights are drawn from seed 0, so the norm
+weights are zero, as in the JAX launcher (ROADMAP.md, faults of the
+reference).
+
+Sharded, one process per card:
+
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \
+        --arch granite-3-2b --reduced --steps 200
+
+With a process group (torchrun's environment, or a caller's
+``init_process_group``) the launcher builds ``make_host_mesh()``, enters
+``mesh_context(mesh, make_rules(cfg, mesh))``, places the parameters and
+the optimizer state as DTensors by ``param_specs``, each batch by
+``training_batch_specs`` and a restored checkpoint into the same
+placements, as the JAX launcher does. Every rank reads the same batches
+and keeps its own rows; rank 0 prints and writes the checkpoints. Without
+a group it runs on the one card with plain tensors, as before.
 
 Fault tolerance, as in the JAX launcher: the run resumes from the latest
 checkpoint (params, optimizer, step and the loader's cursor); ``--kill-at``
@@ -20,18 +34,24 @@ pulled, so a run killed inside a record batch resumes at the next one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config
 from ..configs.base import ArchConfig
 from ..core import Fabric, ThallusServer
+from ..core.device_transport import training_batch_specs
 from ..data import ThallusLoader, make_token_table
 from ..engine import Engine
+from ..models import param_specs, shard_params
+from ..models.sharding import from_full, make_rules, mesh_context, mesh_device, whole
 from ..training import (CheckpointManager, OptimizerConfig, TrainConfig,
                         init_train_state, make_train_step, train_state_shapes)
+from .mesh import process_group_mesh
 
 
 def make_loader(cfg: ArchConfig, *, num_seqs: int, seq_len: int, batch_seqs: int,
@@ -49,8 +69,29 @@ def make_loader(cfg: ArchConfig, *, num_seqs: int, seq_len: int, batch_seqs: int
                          seq_len=seq_len, batch_seqs=batch_seqs, transport=transport)
 
 
-def batch_to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+def batch_to_device(batch: dict[str, np.ndarray], device, mesh=None) -> dict[str, torch.Tensor]:
+    """The loader's numpy batch on ``device``; with a ``mesh``, as DTensors
+    placed by ``training_batch_specs`` (each rank copies its own rows)."""
+    if mesh is None:
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    spec = training_batch_specs(mesh)
+    return {k: from_full(torch.from_numpy(v), mesh, spec, mesh_device(mesh))
+            for k, v in batch.items()}
+
+
+def state_specs(cfg: ArchConfig, state, mesh) -> dict:
+    """The train state's specs: the parameters', for the parameters and for
+    each optimizer tree; ``None`` (a plain tensor) for the step."""
+    pspecs = param_specs(cfg, state["params"], mesh)
+    out = {"params": pspecs, "opt": {k: pspecs for k in state["opt"]}, "step": None}
+    if "ef" in state:
+        out["ef"] = pspecs
+    return out
+
+
+def place_state(state, specs, mesh):
+    return {k: v if specs[k] is None else shard_params(v, specs[k], mesh)
+            for k, v in state.items()}
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -88,6 +129,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
     # float32 products in full float32, as the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(args.device)
+    mesh = process_group_mesh(device)
+    lead = mesh is None or dist.get_rank() == 0
+    if mesh is not None:
+        device = mesh_device(mesh)
+    rules = make_rules(cfg, mesh) if mesh is not None else None
+
+    def scope():
+        return mesh_context(mesh, rules) if mesh is not None else contextlib.nullcontext()
 
     loader = make_loader(cfg, num_seqs=args.num_seqs, seq_len=args.seq_len,
                          batch_seqs=args.batch_seqs, replicas=args.replicas,
@@ -98,13 +147,17 @@ def main(argv: list[str] | None = None) -> list[dict]:
     mgr = CheckpointManager(f"{args.ckpt_dir}/{cfg.name}", keep_last=2)
     latest = mgr.latest_step()
     if latest is not None:
-        print(f"[resume] restoring step {latest}")
-        state, man = mgr.restore(latest, like=train_state_shapes(cfg, tcfg),
-                                 device=device)
+        if lead:
+            print(f"[resume] restoring step {latest}")
+        like = train_state_shapes(cfg, tcfg)
+        specs = state_specs(cfg, like, mesh) if mesh is not None else None
+        state, man = mgr.restore(latest, like=like, device=device, mesh=mesh, specs=specs)
         loader.load_state_dict(man.cursors)
     else:
         state = init_train_state(cfg, tcfg, torch.Generator(device).manual_seed(0),
                                  device)
+        if mesh is not None:
+            state = place_state(state, state_specs(cfg, state, mesh), mesh)
 
     step_fn = make_train_step(cfg, tcfg)
     history: list[dict] = []
@@ -119,12 +172,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
             loader.load_state_dict({"batch_offset": 0})
             data_iter = iter(loader)
             continue
-        state, metrics = step_fn(state, batch_to_device(host_batch, device))
+        with scope():
+            state, metrics = step_fn(state, batch_to_device(host_batch, device, mesh))
+            h = {k: float(whole(v)) for k, v in metrics.items()}
         step = int(state["step"])
-        h = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        h = {"step": step, **h}
         history.append(h)
         tokens_seen += int(h["tokens"])
-        if step % args.log_every == 0:
+        if lead and step % args.log_every == 0:
             dt = time.time() - t0
             print(f"step {step:5d} loss {h['loss']:.4f} "
                   f"gnorm {h['grad_norm']:.3f} "
@@ -134,14 +189,17 @@ def main(argv: list[str] | None = None) -> list[dict]:
                   f"(backups={loader.stats.backup_requests})", flush=True)
         if args.ckpt_every and step % args.ckpt_every == 0:
             path = mgr.save(step, state, cursors=loader.state_dict())
-            print(f"[ckpt] step {step} -> {path}")
+            if lead:
+                print(f"[ckpt] step {step} -> {path}")
         if args.kill_at and step >= args.kill_at:
-            print(f"[crash] simulated failure at step {step} — relaunch "
-                  "to resume from the latest checkpoint")
+            if lead:
+                print(f"[crash] simulated failure at step {step} — relaunch "
+                      "to resume from the latest checkpoint")
             return history
     mgr.save(step, state, cursors=loader.state_dict())
     final = f", final loss {history[-1]['loss']:.4f}" if history else ""
-    print(f"done: {step} steps, {tokens_seen:,} tokens{final}")
+    if lead:
+        print(f"done: {step} steps, {tokens_seen:,} tokens{final}")
     return history
 
 

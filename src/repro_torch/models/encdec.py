@@ -32,6 +32,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve
 from . import transformer
 from .layers import decode_attention, layer_norm, plain_mlp
+from .sharding import constrain, replicated
 
 Params = dict[str, Any]
 
@@ -100,8 +101,8 @@ def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
     return [t.to(dtype) for t in ts]
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsd,dhk->bshk", *_promoted(x, w))
+def _proj(x: torch.Tensor, w: torch.Tensor, heads: str = "heads") -> torch.Tensor:
+    return transformer.project_heads(*_promoted(x, w), heads)
 
 
 def _norm(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -117,15 +118,16 @@ def _mha(cfg: ArchConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor,
     """Attention of ``xq`` (B, Sq, D) over ``xkv`` (B, Sk, D) through the
     flash kernel, top-left causal or not. Returns the projected output
     (B, Sq, D) and the block's k and v (B, Sk, KV, hd)."""
-    q, k, v = _proj(xq, p["wq"]), _proj(xkv, p["wk"]), _proj(xkv, p["wv"])
-    out = transformer.flash_gqa(*_promoted(q, k, v), causal=causal).to(q.dtype)
-    return torch.einsum("bshk,hkd->bsd", *_promoted(out, p["wo"])), k, v
+    q, k, v = _proj(xq, p["wq"]), _proj(xkv, p["wk"], "kv"), _proj(xkv, p["wv"], "kv")
+    q = constrain(q, ("batch", None, "heads", "head_dim"))
+    out = transformer.attend(*_promoted(q, k, v), causal=causal).to(q.dtype)
+    return transformer.merge_heads(*_promoted(out, p["wo"])), k, v
 
 
 def _encoder_layer(cfg: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     h = _norm(x, p["ln1"])
     x = x + _mha(cfg, p["attn"], h, h, causal=False)[0]
-    return x + _mlp(_norm(x, p["ln2"]), p["mlp"])
+    return constrain(x + _mlp(_norm(x, p["ln2"]), p["mlp"]), ("batch", None, "residual"))
 
 
 def _decoder_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
@@ -137,20 +139,22 @@ def _decoder_layer(cfg: ArchConfig, p: Params, x: torch.Tensor,
     x = x + attn
     attn, ck, cv = _mha(cfg, p["cross_attn"], _norm(x, p["ln2"]), enc_out, causal=False)
     x = x + attn
-    return x + _mlp(_norm(x, p["ln3"]), p["mlp"]), (k, v, ck, cv)
+    x = constrain(x + _mlp(_norm(x, p["ln3"]), p["mlp"]), ("batch", None, "residual"))
+    return x, (k, v, ck, cv)
 
 
 def _embed(params: Params, tokens: torch.Tensor, start: int) -> torch.Tensor:
     """``embed[tokens]`` (no ``embed_scale``, as the JAX package reads it
     here) plus the learned positions ``start .. start + S``."""
-    x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+    x = torch.nn.functional.embedding(tokens.long(), replicated(params["embed"]))
     return x + params["dec_pos"][None, start:start + tokens.shape[1]].to(x.dtype)
 
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = _norm(x, params["dec_final_ln"])
-    return transformer.mask_padded_vocab(
+    logits = transformer.mask_padded_vocab(
         cfg, torch.einsum("bsd,vd->bsv", *_promoted(x, params["embed"])))
+    return constrain(logits, ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +168,7 @@ def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor, *,
     ``enc_pos[:T]`` in the frames' dtype; the encoder layers run
     non-causal. -> (B, T_enc, D)."""
     x = frames + params["enc_pos"][None, :frames.shape[1]].to(frames.dtype)
+    x = constrain(x, ("batch", None, "residual"))
     layer = transformer._maybe_remat(functools.partial(_encoder_layer, cfg), remat)
     for layer_p in transformer.unbind_layers(params["encoder"]):
         x = layer(layer_p, x)
@@ -172,7 +177,7 @@ def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor, *,
 
 def _decode_all(cfg: ArchConfig, params: Params, enc_out: torch.Tensor,
                 tokens: torch.Tensor, remat: str, collect_cache: bool):
-    x = _embed(params, tokens, 0)
+    x = constrain(_embed(params, tokens, 0), ("batch", None, "residual"))
     layer = transformer._maybe_remat(functools.partial(_decoder_layer, cfg), remat)
     kvs = []
     for layer_p in transformer.unbind_layers(params["decoder"]):
@@ -251,12 +256,12 @@ def encdec_decode(cfg: ArchConfig, params: Params, cache: Params,
         sp, cp = p["self_attn"], p["cross_attn"]
         h = _norm(x, p["ln1"])
         q = _proj(h, sp["wq"])
-        sk[li, :, position] = _proj(h, sp["wk"])[:, 0].to(sk.dtype)
-        sv[li, :, position] = _proj(h, sp["wv"])[:, 0].to(sv.dtype)
+        sk[li, :, position] = _proj(h, sp["wk"], "kv")[:, 0].to(sk.dtype)
+        sv[li, :, position] = _proj(h, sp["wv"], "kv")[:, 0].to(sv.dtype)
         attn = decode_attention(q, sk[li], sv[li], position=pos_b, k_positions=k_positions)
-        x = x + torch.einsum("bshk,hkd->bsd", *_promoted(attn, sp["wo"]))
+        x = x + transformer.merge_heads(*_promoted(attn, sp["wo"]))
         cq = _proj(_norm(x, p["ln2"]), cp["wq"])
         attn = decode_attention(cq, ck[li], cv[li], position=far, k_positions=c_positions)
-        x = x + torch.einsum("bshk,hkd->bsd", *_promoted(attn, cp["wo"]))
+        x = x + transformer.merge_heads(*_promoted(attn, cp["wo"]))
         x = x + _mlp(_norm(x, p["ln3"]), p["mlp"])
     return _logits(cfg, params, x), cache

@@ -28,6 +28,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve
 from . import transformer
 from .layers import apply_rope, decode_attention, gated_mlp, rms_norm
+from .sharding import constrain
 from .mamba2 import (init_mamba_layer_params, mamba_cache_spec, mamba_decode_layer,
                      mamba_stack)
 
@@ -84,17 +85,20 @@ def init_hybrid_params(cfg: ArchConfig, generator: torch.Generator | None,
 
 
 def _shared_qkv(cfg: ArchConfig, p: Params, h2: torch.Tensor, positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", h2, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h2, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h2, p["wv"])
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    q = transformer.project_heads(h2, p["wq"])
+    k = transformer.project_heads(h2, p["wk"], "kv")
+    v = transformer.project_heads(h2, p["wv"], "kv")
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return (constrain(q, ("batch", None, "heads", "head_dim")),
+            constrain(k, ("batch", None, "kv", "head_dim")),
+            constrain(v, ("batch", None, "kv", "head_dim")))
 
 
 def _shared_tail(cfg: ArchConfig, p: Params, h2: torch.Tensor, attn: torch.Tensor):
     """The block after its attention: ``wo``, the residual, norm, gated MLP,
     the residual and the projection back to D."""
-    h2 = h2 + torch.einsum("bshk,hkd->bsd", attn, p["attn"]["wo"])
+    h2 = h2 + transformer.merge_heads(attn, p["attn"]["wo"])
     h = rms_norm(h2, p["ln2"], cfg.norm_eps)
     h2 = h2 + gated_mlp(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"], cfg.activation)
     return torch.einsum("bsd,de->bse", h2, p["down"])
@@ -108,7 +112,7 @@ def shared_block(cfg: ArchConfig, p: Params, x: torch.Tensor, x0: torch.Tensor,
     h2 = torch.cat([x, x0], dim=-1)                        # (B,S,2D)
     h = rms_norm(h2, p["ln1"], cfg.norm_eps)
     q, k, v = _shared_qkv(cfg, p["attn"], h, positions)
-    delta = _shared_tail(cfg, p, h2, transformer.flash_gqa(q, k, v, causal=True))
+    delta = _shared_tail(cfg, p, h2, transformer.attend(q, k, v, causal=True))
     return (delta, (k, v)) if collect_cache else delta
 
 
@@ -140,7 +144,7 @@ def hybrid_forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, *,
             caches["v"].append(v)
         else:
             delta = shared_block(cfg, params["shared"], x, x0, positions)
-        x = x + delta
+        x = constrain(x + delta, ("batch", None, "residual"))
     x = mamba_stack(cfg, tail, x, remat, caches)
     logits = transformer.logits_fn(cfg, params, x)
     if not collect_cache:

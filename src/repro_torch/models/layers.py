@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .sharding import constrain, is_dtensor, per_rank_heads, whole_dim
+
 NEG_INF = -1e30
 
 
@@ -37,8 +39,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in fp32 with the population variance (``jnp.var``'s, not
-    ``torch.var``'s unbiased default), cast back to x's dtype."""
-    x32 = x.float()
+    ``torch.var``'s unbiased default), cast back to x's dtype; on a DTensor,
+    over the whole normalised dim (:func:`.sharding.whole_dim`)."""
+    x32 = whole_dim(x).float()
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     out = (x32 - mu) * torch.rsqrt(var + eps)
@@ -175,7 +178,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-step decode: q (B, 1, H, hd) vs cache (B, S, KV, hd); positions
     beyond ``position`` (per batch, (B,)) are masked out. Both products run
     in float32 whatever the dtypes of q and the cache (bf16 by default), as
-    the JAX version's promotion and ``preferred_element_type`` give."""
+    the JAX version's promotion and ``preferred_element_type`` give. On
+    DTensors, each rank attends its own batch rows and heads
+    (:func:`.sharding.per_rank_heads`): DTensor's own rules for these
+    reshapes and products plan their redistributions very slowly on a mesh
+    of three dims."""
+    if is_dtensor(q):
+        return per_rank_heads(functools.partial(
+            _decode_attention_rows, scale=scale, logit_softcap=logit_softcap),
+            q, k_cache, v_cache, (position, k_positions))
+    return _decode_attention_rows(q, k_cache, v_cache, position, k_positions,
+                                  scale=scale, logit_softcap=logit_softcap)
+
+
+def _decode_attention_rows(q, k_cache, v_cache, position, k_positions, *,
+                           scale=None, logit_softcap=None):
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
     G = H // KV
@@ -202,7 +219,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Token-mean CE. logits (B,S,V) fp32-reduced; labels (B,S) int."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # the gold logit is looked up with the vocab whole on each rank (DTensor
+    # cannot gather along a sharded dim with batch-sharded indices)
+    gold = torch.gather(constrain(logits, ("batch", None, None)), -1,
+                        labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         mask = mask.float()

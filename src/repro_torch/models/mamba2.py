@@ -9,8 +9,9 @@ the JAX package) that autograd differentiates. Decode is a one-token state
 update. State math runs in float32, products in the parameters' dtype, as
 in the JAX package. The scan is plain PyTorch, as it is plain jnp there;
 :func:`ssd_chunked` runs under the profiler range ``ssd_chunked`` so that a
-profile can name its device time. Sharding constraints are dropped, as in
-:mod:`.transformer`.
+profile can name its device time. Activations pass through
+:func:`.sharding.constrain` at the JAX package's sites, and on DTensors the
+scan runs per rank through ``local_map`` (:func:`sharded_ssd`).
 
 Decode writes each layer's new state and conv window into the cache in
 place and returns the same dict, as :func:`.transformer.transformer_decode`
@@ -28,6 +29,8 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..device import resolve
 from .layers import rms_norm
+from .sharding import (constrain, current_mesh, is_dtensor, local_apply, placements_for,
+                       replicate_all)
 
 Params = dict[str, Any]
 
@@ -175,6 +178,31 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Te
     return y
 
 
+def sharded_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+                C_: torch.Tensor, D_skip: torch.Tensor, chunk: int,
+                return_final_state: bool = False):
+    """:func:`ssd_chunked`, on each rank's own batch rows and SSM heads
+    through ``local_map`` when ``x`` is a DTensor (DTensor has no sharding
+    rule for the scan's cumulative sums and masked exponentials): every
+    head's scan is its own, so nothing moves. With more than one group of
+    B and C the chunk-final states read the sum over all groups (see
+    :func:`ssd_chunked`), so the heads are gathered there instead."""
+    if not is_dtensor(x):
+        return ssd_chunked(x, dt, A, B_, C_, D_skip, chunk, return_final_state)
+    heads = "ssm_heads" if B_.shape[2] == 1 else None
+    xp = placements_for(x, ("batch", None, heads, None))
+    dtp = placements_for(dt, ("batch", None, heads))
+    hp = placements_for(A, (heads,))
+    bp = placements_for(B_, ("batch", None, None, None))
+    outs = xp
+    if return_final_state:
+        Bb, _, H, P = x.shape
+        outs = [xp, placements_for((Bb, H, P, B_.shape[3]), ("batch", heads, None, None))]
+    return local_apply(
+        lambda *a: ssd_chunked(*a, chunk, return_final_state),
+        (x, dt, A, B_, C_, D_skip), (xp, dtp, hp, bp, bp, hp), outs)
+
+
 def mamba_block(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool = False):
     """One mamba2 block over the whole sequence: u (B, S, D) -> (B, S, D)
     (and ``(state, conv_cache)`` when ``return_cache``: the prefill path)."""
@@ -184,12 +212,12 @@ def mamba_block(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool 
     z, xBC_raw, dt_raw = _split_zxbcdt(cfg, zxbcdt)
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
     x, B_, C_ = _split_xbc(cfg, xBC)
-    x = x.reshape(*x.shape[:2], H, P)
+    x = constrain(x.reshape(*x.shape[:2], H, P), ("batch", None, "ssm_heads", None))
     B_ = B_.reshape(*B_.shape[:2], s.ngroups, N)
     C_ = C_.reshape(*C_.shape[:2], s.ngroups, N)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    res = ssd_chunked(x, dt, A, B_, C_, p["D"], s.chunk, return_final_state=return_cache)
+    res = sharded_ssd(x, dt, A, B_, C_, p["D"], s.chunk, return_final_state=return_cache)
     y, final_state = res if return_cache else (res, None)
     y = y.reshape(*y.shape[:2], d_inner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm"], cfg.norm_eps)
@@ -200,11 +228,34 @@ def mamba_block(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool 
     return out
 
 
+_DECODE_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D", "norm", "out_proj")
+
+
 def mamba_decode_block(cfg: ArchConfig, p: Params, u: torch.Tensor,
                        state: torch.Tensor, conv_cache: torch.Tensor):
     """One block, one token. u (B, 1, D); state (B, H, P, N); conv_cache
     (B, W - 1, conv_ch). Returns (out (B, 1, D), new state, new conv
-    cache); the conv runs in float32 on the cache's dtype."""
+    cache); the conv runs in float32 on the cache's dtype.
+
+    On DTensors each rank runs the block on its own batch rows through
+    ``local_map``, the block's weights gathered whole: DTensor's own rules
+    for its reshapes and products plan their redistributions very slowly on
+    a mesh of three dims, and one token's step is small."""
+    if is_dtensor(u):
+        mesh, _ = current_mesh()
+        rows = [placements_for(t, ("batch",) + (None,) * (t.dim() - 1))
+                for t in (u, state, conv_cache)]
+
+        def local(u, state, conv_cache, *weights):
+            return _decode_block(cfg, dict(zip(_DECODE_KEYS, weights)), u, state, conv_cache)
+
+        return local_apply(local, (u, state, conv_cache, *(p[k] for k in _DECODE_KEYS)),
+                           (*rows, *(replicate_all(mesh),) * len(_DECODE_KEYS)), rows)
+    return _decode_block(cfg, p, u, state, conv_cache)
+
+
+def _decode_block(cfg: ArchConfig, p: Params, u: torch.Tensor, state: torch.Tensor,
+                  conv_cache: torch.Tensor):
     s = cfg.ssm
     d_inner, H, P, N, _ = ssm_dims(cfg)
     zxbcdt = torch.einsum("bsd,de->bse", u, p["in_proj"])
@@ -248,7 +299,8 @@ def init_mamba_params(cfg: ArchConfig, generator: torch.Generator | None,
 
 
 def _residual_layer(cfg: ArchConfig, layer_p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x + mamba_block(cfg, layer_p, rms_norm(x, layer_p["ln"], cfg.norm_eps))
+    out = x + mamba_block(cfg, layer_p, rms_norm(x, layer_p["ln"], cfg.norm_eps))
+    return constrain(out, ("batch", None, "residual"))
 
 
 def mamba_stack(cfg: ArchConfig, layers: list[Params], x: torch.Tensor, remat: str,
@@ -265,7 +317,7 @@ def mamba_stack(cfg: ArchConfig, layers: list[Params], x: torch.Tensor, remat: s
             continue
         out, (state, conv) = mamba_block(cfg, layer_p, rms_norm(x, layer_p["ln"], cfg.norm_eps),
                                          return_cache=True)
-        x = x + out
+        x = constrain(x + out, ("batch", None, "residual"))
         caches["state"].append(state)
         caches["conv"].append(conv)
     return x

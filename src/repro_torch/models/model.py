@@ -9,6 +9,11 @@ Batch dicts are the JAX package's:
               its logits cover P + S positions and its loss the text only
   audio train: {"frames": (B,T,D), "tokens": (B,S), "labels": (B,S)}
   decode: tokens (B,1) + scalar position against a cache
+
+:func:`param_specs`, :func:`cache_pspecs` and :func:`batch_pspecs` give
+each leaf's spec (one mesh axis, tuple of axes or ``None`` per dim, see
+:mod:`.sharding`), as the JAX package's give a ``PartitionSpec``;
+:func:`shard_params` places a tree by them as DTensors.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from ..configs.base import ArchConfig
 from . import encdec, hybrid, mamba2, transformer
 from .layers import softmax_cross_entropy
+from .sharding import make_rules, mesh_shape, placements, spec_of
 
 Params = dict[str, Any]
 
@@ -116,6 +122,20 @@ def decode(cfg: ArchConfig, params: Params, cache: Params, tokens: torch.Tensor,
     return transformer.transformer_decode(cfg, params, cache, tokens, position)
 
 
+def cache_spec(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16) -> dict:
+    """Leaf name -> (shape, dtype) of the decode cache, nothing allocated."""
+    _known(cfg)
+    if cfg.family == "ssm":
+        return mamba2.mamba_cache_spec(cfg, batch, dtype)
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_cache_spec(cfg, batch, max_len, dtype)
+    if cfg.family == "audio":
+        return encdec.encdec_cache_spec(cfg, batch, max_len, dtype)
+    kv = ((cfg.num_layers, batch, max_len, cfg.eff_kv, cfg.resolved_head_dim), dtype)
+    return {"k": kv, "v": kv}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> Params:
     """Zeros of the decode cache; an SSM state is float32 whatever
@@ -128,3 +148,130 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     if cfg.family == "audio":
         return encdec.init_encdec_cache(cfg, batch, max_len, dtype, device)
     return transformer.init_cache(cfg, batch, max_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+# trailing-dims logical axes by leaf name (left-padded with None for layer /
+# group stacking); MoE experts override below.
+_LEAF_RULES: dict[str, tuple] = {
+    "embed": ("vocab", "fsdp"),
+    "lm_head": ("fsdp", "vocab"),
+    "enc_pos": (None, "fsdp"),
+    "dec_pos": (None, "fsdp"),
+    "wq": ("fsdp", "heads", "head_dim"),
+    "wk": ("fsdp", "kv", "head_dim"),
+    "wv": ("fsdp", "kv", "head_dim"),
+    "wo": ("heads", "head_dim", "fsdp"),
+    "wi": ("fsdp", "model_ffn"),
+    "wg": ("fsdp", "model_ffn"),
+    "wu": ("fsdp", "model_ffn"),
+    "wd": ("model_ffn", "fsdp"),
+    "router": ("fsdp", None),
+    "in_proj": ("fsdp", "d_inner"),
+    "out_proj": ("d_inner", "fsdp"),
+    "conv_w": (None, None),
+    "conv_b": (None,),
+    "A_log": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",),
+    "down": ("fsdp", None),
+}
+_MOE_OVERRIDES: dict[str, tuple] = {
+    "wg": ("experts", "fsdp", "model_ffe"),
+    "wu": ("experts", "fsdp", "model_ffe"),
+    "wd": ("experts", "model_ffe", "fsdp"),
+}
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _shape(leaf) -> tuple:
+    """A tensor's shape, or the shape of a ``(shape, dtype)`` pair."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[0])
+
+
+def param_specs(cfg: ArchConfig, shapes: Params, mesh, options: dict | None = None) -> Params:
+    """The spec tree matching the parameter tree ``shapes`` (tensors, meta
+    tensors from :func:`param_shapes`, or anything with ``.shape``)."""
+    rules = make_rules(cfg, mesh, options)
+
+    def leaf_spec(names, leaf):
+        name = names[-1]
+        table = _LEAF_RULES
+        if "moe" in names and "shared" not in names and name in _MOE_OVERRIDES:
+            table = _MOE_OVERRIDES
+        logical = table.get(name)
+        shape = _shape(leaf)
+        if logical is None:
+            return ()                                 # norms, scalars: replicate
+        pad = len(shape) - len(logical)
+        if pad < 0:
+            logical = logical[-len(shape):]
+            pad = 0
+        logical = (None,) * pad + tuple(logical)
+        return spec_of(logical, rules, shape=shape, mesh=mesh)
+
+    return _map_with_path(leaf_spec, shapes)
+
+
+def cache_pspecs(cfg: ArchConfig, shapes: Params, mesh, options: dict | None = None) -> Params:
+    """KV/state cache sharding cascade: kv heads when divisible; else
+    head_dim; else the sequence dim rides the model axis. ``shapes`` is a
+    cache tree or :func:`cache_spec`'s."""
+    rules = make_rules(cfg, mesh, options)
+    model = rules.get("model")
+    msize = mesh_shape(mesh)["model"] if model is not None else 1
+
+    def leaf_spec(names, leaf):
+        name = names[-1]
+        shape = _shape(leaf)
+        if name in ("k", "v", "self_k", "self_v", "cross_k", "cross_v"):
+            # (L_or_G, B, S, KV, hd)
+            spec = list(spec_of((None, "batch", None, "kv", None), rules,
+                                shape=shape, mesh=mesh))
+            if model is not None and spec[3] is None:
+                if shape[4] % msize == 0:
+                    spec[4] = model                      # head_dim shards
+                elif shape[2] % msize == 0:
+                    spec[2] = model                      # seq shards
+            return tuple(spec)
+        if name == "state":               # (L, B, H, P, N)
+            return spec_of((None, "batch", "ssm_heads", None, None), rules,
+                           shape=shape, mesh=mesh)
+        if name == "conv":                # (L, B, W-1, conv_ch)
+            return spec_of((None, "batch", None, None), rules, shape=shape, mesh=mesh)
+        return (None,) * len(shape)
+
+    return _map_with_path(leaf_spec, shapes)
+
+
+def batch_pspecs(cfg: ArchConfig, batch_shapes: dict, mesh, options: dict | None = None) -> dict:
+    """Batch-leading specs for a batch dict (tensors or ``(shape, dtype)``
+    pairs); ``position`` and 0-d leaves replicate."""
+    rules = make_rules(cfg, mesh, options)
+    out = {}
+    for k, v in batch_shapes.items():
+        shape = _shape(v)
+        if k == "position" or not shape:
+            out[k] = ()
+        else:
+            out[k] = spec_of(("batch",) + (None,) * (len(shape) - 1), rules,
+                             shape=shape, mesh=mesh)
+    return out
+
+
+def shard_params(params: Params, specs: Params, mesh) -> Params:
+    """Each leaf of ``params`` as a DTensor on ``mesh`` placed by its spec
+    (``distribute_tensor``: every rank passes the whole tensor and keeps its
+    own shard). The port's ``jax.device_put(NamedSharding)``."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(params, dict):
+        return {k: shard_params(v, specs[k], mesh) for k, v in params.items()}
+    return distribute_tensor(params, mesh, placements(specs, mesh))

@@ -18,11 +18,13 @@ particular torch call to keep its result:
   pairs its capacity drops.
 
 The dispatch is plain torch, as it is plain jnp in the JAX package: no
-kernel of its own.
+kernel of its own. Its groups, and how they run on a mesh, are
+:func:`moe_ffn`'s.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -30,6 +32,8 @@ import torch
 from ..configs.base import MoEConfig
 from ..device import resolve
 from .layers import _activate
+from .sharding import (constrain, dispatch_groups, is_dtensor, local_apply,
+                       placements_for, replicate_all)
 
 
 def init_moe_params(generator: torch.Generator | None, d_model: int, m: MoEConfig,
@@ -146,21 +150,49 @@ def _dispatch_one_group(xt: torch.Tensor, router: torch.Tensor, m: MoEConfig,
     return out_e.new_zeros((Tg, D)).index_add(0, r.token_of, gathered)
 
 
+def _dispatch_groups(xg: torch.Tensor, router, wg, wu, wd, *, m: MoEConfig,
+                     activation: str, C: int) -> torch.Tensor:
+    """:func:`_dispatch_one_group` over each group of ``xg`` (G, Tg, D), as
+    ``jax.vmap`` runs it in the JAX package."""
+    return torch.stack([_dispatch_one_group(xt, router, m, activation, wg, wu, wd, C)
+                        for xt in xg.unbind(0)])
+
+
 def moe_ffn(x: torch.Tensor, p: dict, m: MoEConfig, activation: str) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).
 
-    The JAX package dispatches per token group, ``G = gcd(dispatch_groups(),
-    B*S)`` groups, where ``dispatch_groups()`` is the number of batch shards
-    on the mesh and 1 without one. The port runs on one card with no mesh
-    (ROADMAP item 9), so all ``B*S`` tokens are one group, of capacity
-    ``capacity_for(B*S)``. A decode step routes its ``B`` tokens as one
-    group, as in the JAX package."""
+    Dispatch runs per token group, ``G = gcd(dispatch_groups(), B*S)``
+    groups of ``Tg = B*S / G`` consecutive tokens, each of capacity
+    ``capacity_for(Tg)``, as in the JAX package: ``dispatch_groups()`` is
+    the number of batch shards under a mesh context and 1 without one. Each
+    group routes, sorts and drops on its own, so the drop pattern depends on
+    G, as JAX's does.
+
+    On DTensors the groups are laid out over the batch shards and the
+    dispatch (sort, ``bincount``, ``index_put``, ``index_add``, for which
+    DTensor has no sharding rule) runs on each rank's own groups through
+    ``local_map``. The router and the expert weights are gathered whole on
+    every rank for it (an all-gather of the expert axis, where the JAX
+    package lets XLA choose), and their gradients summed over the batch
+    shards."""
     B, S, D = x.shape
     T = B * S
-    C = capacity_for(T, m)
+    G = math.gcd(dispatch_groups(), T)
+    Tg = T // G
+    C = capacity_for(Tg, m)
+    # one group has nothing to lay out over the batch shards
+    glogical = ("batch", None, None) if G > 1 else (None, None, None)
+    xg = constrain(x.reshape(G, Tg, D), glogical)
+    args = (xg, p["router"], p["wg"], p["wu"], p["wd"])
+    fn = functools.partial(_dispatch_groups, m=m, activation=activation, C=C)
+    if is_dtensor(xg):
+        gp = placements_for(xg, glogical)
+        whole = replicate_all(xg.device_mesh)
+        out = local_apply(fn, args, (gp,) + (whole,) * 4, gp)
+    else:
+        out = fn(*args)
+    out = constrain(out, glogical).reshape(T, D)
     xt = x.reshape(T, D)
-    out = _dispatch_one_group(xt, p["router"], m, activation, p["wg"], p["wu"],
-                              p["wd"], C)
     if m.shared_expert_ff:
         sh = p["shared"]
         g = _activate(torch.einsum("td,df->tf", xt, sh["wg"]), activation)

@@ -9,8 +9,12 @@ runs ``chunked_attention``. ``remat`` maps the JAX package's policies to
 ``torch.utils.checkpoint`` around each decoder layer. The other matrix
 products are ``torch.einsum``, as the JAX package leaves them to XLA; the
 entry points keep ``torch.backends.cuda.matmul.allow_tf32`` False so that
-they run in full float32. Sharding constraints are dropped: the port runs
-on one card (mesh and sharding rules are ROADMAP item 9).
+they run in full float32.
+
+Activations pass through :func:`.sharding.constrain` with the JAX package's
+logical names at the JAX package's sites: a no-op on plain tensors, a
+redistribution of DTensors under a mesh context (the parameters placed by
+:func:`.model.param_specs`), so the same code runs on one card and sharded.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from ..device import resolve
 from ..kernels.attention import flash_gqa
 from .layers import _rounded, apply_rope, decode_attention, gated_mlp, rms_norm
 from .moe import init_moe_params, moe_ffn
+from .sharding import constrain, local_einsum, replicated, sharded_attention
 
 Params = dict[str, Any]
 
@@ -109,16 +114,44 @@ def unbind_layers(layers: Params) -> list[Params]:
 # ---------------------------------------------------------------------------
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor, heads: str = "heads") -> torch.Tensor:
+    """x (B, S, D) by w (D, H, hd) -> (B, S, H, hd); ``heads`` is the
+    logical name of w's head axis (``kv`` for K and V). Under a mesh each
+    rank projects its batch rows onto its heads (w gathered over its fsdp
+    shards), :func:`.sharding.local_einsum`."""
+    return local_einsum("bsd,dhk->bshk", x, w, ("batch", None, None),
+                        (None, heads, "head_dim"))
+
+
+def merge_heads(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """out (B, S, H, hd) by wo (H, hd, D) -> (B, S, D); under a mesh,
+    partial over ``model`` where the heads or head dims are sharded."""
+    return local_einsum("bshk,hkd->bsd", out, wo, ("batch", None, "heads", "head_dim"),
+                        ("heads", "head_dim", None))
+
+
 def _qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project_heads(x, p["wq"])
+    k = project_heads(x, p["wk"], "kv")
+    v = project_heads(x, p["wv"], "kv")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", None, "heads", "head_dim"))
+    k = constrain(k, ("batch", None, "kv", "head_dim"))
+    v = constrain(v, ("batch", None, "kv", "head_dim"))
     return q, k, v
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool) -> torch.Tensor:
+    """Prefill attention of every family: this module's ``flash_gqa``, read
+    when called (so that swapping that one name for ``flash_gqa_ref`` swaps
+    the attention of every family), on each rank's own heads under a mesh
+    (:func:`.sharding.sharded_attention`)."""
+    return sharded_attention(flash_gqa, q, k, v, causal=causal)
 
 
 def _attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
@@ -130,8 +163,9 @@ def _attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,
         raise NotImplementedError("the flash kernel has no logit soft-cap; "
                                   "no ported config sets one")
     q, k, v = _qkv(cfg, p, x, positions)
-    out = flash_gqa(q, k, v, causal=True)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (k, v)
+    out = constrain(attend(q, k, v, causal=True),
+                    ("batch", None, "heads", "head_dim"))
+    return merge_heads(out, p["wo"]), (k, v)
 
 
 def _ffn_block(cfg: ArchConfig, layer_p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -143,11 +177,17 @@ def _ffn_block(cfg: ArchConfig, layer_p: Params, x: torch.Tensor) -> torch.Tenso
 
 def _decoder_layer(cfg: ArchConfig, layer_p: Params, x: torch.Tensor,
                    positions: torch.Tensor) -> tuple[torch.Tensor, tuple]:
+    # Megatron-SP schedule, as in the JAX package: norm on the sharded
+    # residual, gather the norm output for the block, and pin the block
+    # outputs back to the residual sharding
     h = rms_norm(x, layer_p["ln1"], cfg.norm_eps, cfg.zero_centered_norm)
+    h = constrain(h, ("batch", None, None))
     attn_out, kv = _attention_block(cfg, layer_p["attn"], h, positions)
-    x = x + attn_out
+    x = x + constrain(attn_out, ("batch", None, "residual"))
     h = rms_norm(x, layer_p["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
-    return x + _ffn_block(cfg, layer_p, h), kv
+    h = constrain(h, ("batch", None, None))
+    ffn = constrain(_ffn_block(cfg, layer_p, h), ("batch", None, "residual"))
+    return constrain(x + ffn, ("batch", None, "residual")), kv
 
 
 def _save_dots(ctx, func, *args, **kwargs) -> CheckpointPolicy:
@@ -183,10 +223,10 @@ def _maybe_remat(fn, remat: str):
 
 
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+    x = torch.nn.functional.embedding(tokens.long(), replicated(params["embed"]))
     if cfg.embed_scale:
         x = x * _rounded(math.sqrt(cfg.d_model), x.dtype)
-    return x
+    return constrain(x, ("batch", None, "residual"))
 
 
 def mask_padded_vocab(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -204,7 +244,7 @@ def logits_fn(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
-    return mask_padded_vocab(cfg, logits)
+    return constrain(mask_padded_vocab(cfg, logits), ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +320,7 @@ def transformer_decode(cfg: ArchConfig, params: Params, cache: Params,
         out = decode_attention(q, kc[li], vc[li], position=pos_b,
                                k_positions=k_positions,
                                logit_softcap=cfg.logit_softcap)
-        x = x + torch.einsum("bshk,hkd->bsd", out, layer_p["attn"]["wo"])
+        x = x + merge_heads(out, layer_p["attn"]["wo"])
         h = rms_norm(x, layer_p["ln2"], cfg.norm_eps, cfg.zero_centered_norm)
         x = x + _ffn_block(cfg, layer_p, h)
     return logits_fn(cfg, params, x), cache

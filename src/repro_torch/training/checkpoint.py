@@ -6,8 +6,10 @@ utf8-json, data binary), written as a ``serialize.pack`` wire image beside
 a JSON manifest. Paths, dtype strings, bytes and manifest are the JAX
 package's: leaves in ``jax.tree_util`` order (sorted dict keys), names
 joined by ``/``. A checkpoint written by either package restores in the
-other. Restoring puts each leaf on a ``device`` where the JAX package takes
-a mesh and specs.
+other. Restoring puts each leaf on a ``device``, or, given a mesh and
+specs as the JAX package takes them, places each leaf as a DTensor (the
+elastic path: a checkpoint restores onto any mesh). A tree of DTensors is
+saved as full tensors: every rank gathers each leaf, rank 0 writes.
 """
 from __future__ import annotations
 
@@ -19,11 +21,13 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import serialize
 from ..core.recordbatch import RecordBatch, batch_from_pydict
 from ..core.schema import schema as make_schema
 from ..device import resolve
+from ..core.placement import from_full, is_dtensor, mesh_device
 from .tree import flatten_with_paths, tree_unflatten
 
 Pytree = Any
@@ -40,6 +44,8 @@ BF16 = "bfloat16"
 def _row(leaf) -> tuple[str, np.ndarray]:
     """(dtype string, numpy array of the leaf's bytes)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()      # a collective: every rank saves
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
             return BF16, leaf.view(torch.uint16).numpy()
@@ -61,11 +67,14 @@ def state_to_batch(tree: Pytree) -> RecordBatch:
 
 
 def batch_to_state(batch: RecordBatch, like: Pytree | None = None,
-                   device=None) -> Pytree:
+                   device=None, *, mesh=None, specs: Pytree | None = None) -> Pytree:
     """Without ``like``: ``{path: numpy array}`` (a bfloat16 leaf as its
     uint16 bit pattern). With ``like`` (a tree of tensors, on any device, the
     meta device too): that tree, each leaf a tensor on ``device`` (default
-    the card)."""
+    the card); with ``mesh`` and ``specs`` (a spec tree of ``like``'s
+    structure), each leaf a DTensor placed by its spec, each rank copying
+    only its own shard to its card (a leaf whose spec is ``None``, a plain
+    tensor on the rank's device)."""
     rows, bf16 = {}, set()
     d = batch.to_pydict()
     for p, dt, sh, raw in zip(d["path"], d["dtype"], d["shape"], d["data"]):
@@ -75,7 +84,8 @@ def batch_to_state(batch: RecordBatch, like: Pytree | None = None,
         rows[p] = np.frombuffer(raw, dtype=dtype).reshape(json.loads(sh))
     if like is None:
         return rows
-    device = resolve(device)
+    device = resolve(device) if mesh is None else None
+    spec_of = dict(flatten_with_paths(specs)) if mesh is not None else {}
     leaves = []
     for name, leaf in flatten_with_paths(like):
         if name not in rows:
@@ -85,8 +95,24 @@ def batch_to_state(batch: RecordBatch, like: Pytree | None = None,
             raise ValueError(f"shape mismatch for {name}: "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
         t = torch.from_numpy(arr.copy())
-        leaves.append((t.view(torch.bfloat16) if name in bf16 else t).to(device))
+        t = t.view(torch.bfloat16) if name in bf16 else t
+        if mesh is None:
+            leaves.append(t.to(device))
+        elif spec_of[name] is None:                    # a plain tensor
+            leaves.append(t.to(mesh_device(mesh)))
+        else:
+            leaves.append(from_full(t, mesh, spec_of[name], mesh_device(mesh)))
     return tree_unflatten(like, leaves)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    """Every rank waits for rank 0's files (no-op without a process group)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 @dataclasses.dataclass
@@ -113,6 +139,9 @@ class CheckpointManager:
              extra: dict | None = None) -> str:
         data_path, man_path = self._paths(step)
         wire = serialize.pack(state_to_batch(state))   # columnar wire image
+        if _rank() != 0:                # the others gathered for rank 0
+            _barrier()
+            return data_path
         tmp = data_path + ".tmp"
         with open(tmp, "wb") as f:
             f.write(wire.tobytes())
@@ -125,6 +154,7 @@ class CheckpointManager:
             json.dump(dataclasses.asdict(man), f)
         os.replace(tmp, man_path)
         self._gc()
+        _barrier()
         return data_path
 
     def _gc(self) -> None:
@@ -148,11 +178,12 @@ class CheckpointManager:
         with open(self._paths(step)[1]) as f:
             return Manifest(**json.load(f))
 
-    def restore(self, step: int, like: Pytree | None = None,
-                device=None) -> tuple[Pytree, Manifest]:
+    def restore(self, step: int, like: Pytree | None = None, device=None, *,
+                mesh=None, specs: Pytree | None = None) -> tuple[Pytree, Manifest]:
         wire = np.fromfile(self._paths(step)[0], dtype=np.uint8)
         batch = serialize.unpack(wire, zero_copy=True)   # views, no copies
-        return batch_to_state(batch, like=like, device=device), self.load_manifest(step)
+        state = batch_to_state(batch, like=like, device=device, mesh=mesh, specs=specs)
+        return state, self.load_manifest(step)
 
     def restore_latest(self, **kw) -> tuple[Pytree, Manifest] | None:
         step = self.latest_step()

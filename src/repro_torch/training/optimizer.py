@@ -54,8 +54,8 @@ def global_norm(tree: Pytree) -> torch.Tensor:
 
 
 def init_opt_state(cfg: OptimizerConfig, params: Pytree) -> Pytree:
-    def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros32(p):                       # placed like p, for a DTensor
+        return torch.zeros_like(p, dtype=torch.float32)
 
     state = {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params)}
     if cfg.master_fp32:

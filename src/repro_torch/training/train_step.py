@@ -7,8 +7,9 @@ The train state is the JAX package's tree, ``{"params", "opt": {"m", "v",
 (float32, like the params) present when ``compress_dp_grads`` is set. The
 step updates the state's tensors in place and returns the same dict (the JAX
 step returns a new tree): at full width the state is 5 x 10.1 GB of float32,
-6 x with ``ef``. Mesh and sharding are dropped, as everywhere in the port
-(ROADMAP item 9).
+6 x with ``ef``. The same step runs on a state of DTensors (placed by
+:func:`repro_torch.models.param_specs`) and a batch placed by
+``batch_pspecs``, under a mesh context.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve
 from ..models import init_params, loss_fn
+from ..core.placement import is_dtensor
 from .compression import compress_decompress_, init_error_feedback
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
 from .tree import tree_leaves, tree_map, tree_unflatten
@@ -64,6 +66,15 @@ def _split_microbatches(batch: dict, k: int) -> list[dict]:
     return [{key: p[i] for key, p in parts.items()} for i in range(k)]
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient placed like its parameter: autograd leaves a
+    weight's gradient ``Partial`` over the batch shards, and this is the
+    data-parallel reduce (a reduce-scatter where the weight is sharded)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics), with metrics
     ``loss``, ``grad_norm``, ``lr`` and ``tokens`` as 0-d float32 tensors on
@@ -75,15 +86,14 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     def compute_grads(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss = loss_fn(cfg, tree_unflatten(params, leaves), batch, remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_unflatten(params, list(grads))
+        grads = [_placed_like(g, p) for g, p in zip(torch.autograd.grad(loss, leaves), leaves)]
+        return loss.detach(), tree_unflatten(params, grads)
 
     def train_step(state: Pytree, batch: dict) -> tuple[Pytree, dict]:
         params = state["params"]
         if tcfg.microbatches > 1:
             loss_sum = 0.0
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for mb in _split_microbatches(batch, tcfg.microbatches):
                 loss, g = compute_grads(params, mb)
                 tree_map(lambda a, b: a.add_(b), grads, g)

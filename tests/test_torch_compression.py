@@ -125,9 +125,60 @@ def test_error_feedback_and_wire_bytes_match_jax():
     assert compression_wire_bytes(ef) == compression_wire_bytes(params)
 
 
-def test_compressed_psum_pod_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        compressed_psum_pod({}, {})
+@pytest.fixture
+def one_pod():
+    """A one-rank gloo group and its (1,) ``pod`` mesh, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh((1,), ("pod",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_psum_pod_at_one_pod_is_compress_decompress(one_pod):
+    """One pod: the all-reduced payload is the pod's own ``q``, the mean
+    scale its own scale, so the pod mean is ``compress_decompress``'s
+    dequantized gradient and the error feedback its new one, bit for bit,
+    and both JAX's (the cross-pod form at two pods: test_torch_mesh.py)."""
+    names = [n for n, _, _ in _leaves()]
+    grads = {n: torch.from_numpy(g) for n, g, _ in _leaves()}
+    ef = {n: torch.from_numpy(e) for n, _, e in _leaves()}
+    mean, new_ef = compressed_psum_pod(grads, ef, one_pod)
+    assert sorted(mean) == sorted(new_ef) == sorted(names)
+    for n, g, e in _leaves():
+        want_deq, want_ef = jax_compress_decompress(jnp.asarray(g), jnp.asarray(e))
+        _bits_equal(mean[n], want_deq, f"{n} mean")
+        _bits_equal(new_ef[n], want_ef, f"{n} ef")
+        deq, ef2 = compress_decompress(torch.from_numpy(g), torch.from_numpy(e))
+        assert torch.equal(mean[n], deq) and torch.equal(new_ef[n], ef2)
+    assert torch.equal(ef["normal+ef"], torch.from_numpy(_leaves()[1][2]))  # not in place
+
+
+def test_compressed_psum_pod_payload_is_the_int8_values_at_one_pod(one_pod):
+    from repro_torch.training.compression import pod_reduce_leaf
+    for n, g, e in _leaves():
+        target = torch.from_numpy(g) + torch.from_numpy(e)
+        q, _ = quantize_int8(target)
+        _, _, acc = pod_reduce_leaf(torch.from_numpy(g), torch.from_numpy(e),
+                                    one_pod.get_group("pod"), 1)
+        assert acc.dtype == torch.int32
+        assert torch.equal(acc, q.to(torch.int32)), n
+
+
+def test_compressed_psum_pod_keeps_dtensor_leaves_placed(one_pod):
+    """A DTensor leaf is reduced by its local shard and comes back a
+    DTensor placed as it was."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+    n, g, e = _leaves()[1]
+    dg = distribute_tensor(torch.from_numpy(g), one_pod, [Replicate()])
+    de = distribute_tensor(torch.from_numpy(e), one_pod, [Replicate()])
+    mean, new_ef = compressed_psum_pod({n: dg}, {n: de}, one_pod)
+    assert isinstance(mean[n], DTensor) and tuple(mean[n].placements) == (Replicate(),)
+    deq, ef2 = compress_decompress(torch.from_numpy(g), torch.from_numpy(e))
+    assert torch.equal(mean[n].to_local(), deq) and torch.equal(new_ef[n].to_local(), ef2)
 
 
 # ---------------------------------------------------------------- train step

@@ -781,3 +781,77 @@ def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
     for name in cache:
         torch.testing.assert_close(cache[name], want_cache[name], **ATT_TOL)
     assert loss == pytest.approx(want_loss, rel=1e-5)
+
+
+# ---------------------------------------------------------------- mesh
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL group from an in-process store and its
+    ``make_host_mesh()`` (1, 1), torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("heads,kv,hd,causal", [(8, 2, 64, True), (4, 4, 128, False),
+                                                 (3, 1, 16, True)])
+def test_flash_through_local_map_on_a_mesh_matches_the_plain_attention(nccl_mesh, heads, kv,
+                                                                       hd, causal):
+    """``sharded_attention`` on DTensors (batch rows and heads placed by the
+    rules) launches the kernel once on the rank's shard, and its output
+    equals the kernel on the plain tensors bit for bit and the plain
+    attention within the kernel tests' tolerance."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding as sh
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), num_heads=heads,
+                              num_kv_heads=kv, head_dim=hd)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 70, h, hd), generator=g, device="cuda")
+               for h in (heads, kv, kv))
+    rules = sh.make_rules(cfg, nccl_mesh)
+    with sh.mesh_context(nccl_mesh, rules):
+        dq = sh.from_full(q, nccl_mesh, sh.spec_of(("batch", None, "heads", None), rules,
+                                                     q.shape, nccl_mesh), q.device)
+        dk, dv = (sh.from_full(t, nccl_mesh, sh.spec_of(("batch", None, "kv", None), rules,
+                                                         t.shape, nccl_mesh), t.device)
+                  for t in (k, v))
+        launches = tattn.flash_attention.launches
+        out = sh.sharded_attention(tattn.flash_gqa, dq, dk, dv, causal=causal)
+        assert tattn.flash_attention.launches == launches + 1
+    assert isinstance(out, DTensor)
+    got = out.full_tensor()
+    assert torch.equal(got, tattn.flash_gqa(q, k, v, causal=causal))
+    torch.testing.assert_close(got, tattn.flash_gqa_ref(q, k, v, causal=causal),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_reduced_granite_on_a_one_rank_mesh_serves_as_plain_tensors(nccl_mesh):
+    """The serve launcher's function on DTensors under the (1, 1) mesh: the
+    plain run's tokens, one flash launch per layer per cohort."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import init_params
+    cfg = get_config("granite-3-2b").reduced()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, g, device="cuda")
+    for key in ("ln1", "ln2"):
+        params["layers"][key] = 1.0 + 0.1 * torch.randn(params["layers"][key].shape,
+                                                        generator=g, device="cuda")
+    params["final_norm"] = 1.0 + 0.1 * torch.randn((cfg.d_model,), generator=g, device="cuda")
+    reqs = make_requests(cfg, 8, 12, 6)
+    plain = serve(cfg, params, reqs, 4, "cuda")
+    launches = tattn.flash_attention.launches
+    sharded = serve(cfg, params, reqs, 4, "cuda", mesh=nccl_mesh)
+    assert tattn.flash_attention.launches - launches == 2 * cfg.num_layers
+    assert [c.tokens for c in sharded.completions] == [c.tokens for c in plain.completions]
