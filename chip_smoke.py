@@ -120,7 +120,16 @@ Phases:
    limits, then one AdamW step on a DTensor train state;
    ``compressed_psum_pod`` over a one-pod mesh bit for bit against
    ``compress_decompress``;
-11. report: a ``{"kernels": [...]}`` line, the card line, and last the
+11. cost: granite-3-2b at full width and depth as phase 4 seeds it, set
+   (b)'s cohort prefill (4 x its 1003 tokens) and one (c) train step (8 x
+   128, remat none, AdamW) counted by the port's cost counter
+   (``repro_torch.utils.cost``) on the card, the flash kernel on, and on
+   the meta device: FLOPs, transcendentals and both byte accountings must
+   be equal. ``[roofline]`` lines give the counts, the roofline at the
+   H100's float32 peak (``repro_torch.utils.roofline``), ``model_flops``
+   (2·N·D, 6·N·D) and, beside phase 4's prefill ms and phase 5's median
+   step, bound / measured and the share of the float32 peak;
+12. report: a ``{"kernels": [...]}`` line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 Any mismatch raises: the script then exits non-zero and prints no result
@@ -2635,6 +2644,133 @@ def phase_mesh(dev, wrappers, serve_out: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- cost
+def count_on(fn, *args) -> dict:
+    """``fn(*args)`` under the port's cost counter: FLOPs, transcendentals,
+    both byte accountings, product FLOPs and collective bytes."""
+    from repro_torch.utils import cost
+    with cost.Counter() as c:
+        fn(*args)
+    unfused, fused = c.cost(), c.cost(cost.FUSED_ATTENTION_FNS)
+    return {"flops": unfused.flops, "transcendentals": unfused.transcendentals,
+            "bytes": unfused.bytes, "fused_bytes": fused.bytes,
+            "product_flops": c.product_flops,
+            "collective_wire_bytes": unfused.collective_wire_bytes}
+
+
+def synced_median_s(call, runs: int = 3) -> float:
+    """The median host seconds of ``runs`` calls, each between two
+    synchronizes."""
+    secs = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs)
+
+
+def roofline_line(label: str, counted: dict, model_flops: float,
+                  measured: list[tuple[str, float]], card: str) -> dict:
+    """The roofline of a counted call at the float32 peak, in both byte
+    accountings, and its bound over each measured time in ``measured``
+    (what was timed, seconds)."""
+    from repro_torch.utils.roofline import PEAK_FLOPS_FP32, Roofline
+    out = {"counted": counted}
+    for acc, key in (("unfused", "bytes"), ("fused", "fused_bytes")):
+        r = Roofline(counted["flops"], counted[key], counted["collective_wire_bytes"],
+                     model_flops, peak_flops=PEAK_FLOPS_FP32)
+        out[acc] = r.to_dict()
+    r = out["unfused"]
+    line = (f"[roofline] {label}: {counted['flops']:.6e} FLOP ({counted['product_flops']:.6e} in "
+            f"products), {counted['transcendentals']:.6e} transcendentals, {counted['bytes']:.6e} B "
+            f"({counted['fused_bytes']:.6e} B fused); compute_s {r['compute_s']:.6f}, memory_s "
+            f"{r['memory_s']:.6f} ({out['fused']['memory_s']:.6f} fused), bottleneck "
+            f"{r['bottleneck']}; model_flops {model_flops:.6e} (useful ratio "
+            f"{r['useful_flops_ratio']:.4f}); mfu_bound at the float32 peak "
+            f"{r['mfu_bound']:.4f}")
+    out["measured"] = []
+    for what, secs in measured:
+        m = {"what": what, "s": secs, "bound_over_measured": r["step_s"] / secs,
+             "fp32_peak_share": counted["flops"] / (secs * PEAK_FLOPS_FP32)}
+        out["measured"].append(m)
+        line += (f"; {what} {secs:.6f} s, bound / measured {m['bound_over_measured']:.4f}, "
+                 f"share of the float32 peak {m['fp32_peak_share']:.4f}")
+    log(f"{line} card={card}")
+    return out
+
+
+def phase_cost(dev, cfg, wrappers, serve_out: dict, train_out: dict, card: str) -> dict:
+    """Phase 11: count granite-3-2b's set-(b) cohort prefill and one (c)
+    train step (8 x 128, remat none, AdamW) at full width with the port's
+    cost counter, on the card (untimed, the flash kernel on) and on the meta
+    device; the two counts must be equal. Prints the ``[roofline]`` lines
+    at the float32 peak beside the counted call's own time (the median of
+    three more runs on the same device-resident inputs, each between two
+    synchronizes), and beside phase 4's prefill ms and phase 5's median
+    step, whose host times also hold the loader and the batch's copy."""
+    from repro_torch.launch.train import batch_to_device, make_loader
+    from repro_torch.models import prefill
+    from repro_torch.training import (OptimizerConfig, TrainConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.utils.cost import on_meta
+    from repro_torch.utils.roofline import model_flops
+    t0 = time.perf_counter()
+    b = serve_out["sets"]["b_long_prompts"]
+    seq = b["prompt_lens"][0]
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (4, seq)).astype(np.int32)).to(dev)
+    params = perturbed_params(cfg, dev)
+    step = make_train_step(cfg, TrainConfig(optimizer=OptimizerConfig(**TRAIN_OPT),
+                                            remat="none"))
+    batch_seqs, seq_len, _ = TRAIN_SHAPES["c_default"]
+    batch = batch_to_device(next(iter(make_loader(cfg, num_seqs=64, seq_len=seq_len,
+                                                  batch_seqs=batch_seqs, replicas=1,
+                                                  transport="thallus"))), dev)
+    n = cfg.num_params(active_only=True)
+    out, launches = {}, {}
+
+    def count_both(label, run, meta_run, mf, phase_s, phase_what):
+        wrappers["flash_attention"].launches = 0
+        card_count = count_on(run)
+        torch.cuda.synchronize()
+        launches[label] = wrappers["flash_attention"].launches
+        meta_count = count_on(meta_run)
+        if card_count != meta_count:
+            raise AssertionError(f"cost {label}: the card counts {card_count}, the meta "
+                                 f"device {meta_count}")
+        if launches[label] != cfg.num_layers:
+            raise AssertionError(f"cost {label}: {launches[label]} flash launches under the "
+                                 f"counter, expected {cfg.num_layers}")
+        log(f"[cost] {label}: card and meta counts equal ({card_count['flops']:.6e} FLOP, "
+            f"{card_count['bytes']:.6e} B, {card_count['fused_bytes']:.6e} B fused); "
+            f"{launches[label]} flash launches on the card smi={gpu_state()} card={card}")
+        measured = [("the counted call, median of 3", synced_median_s(run)),
+                    (phase_what, phase_s)]
+        out[label] = roofline_line(label, card_count, mf, measured, card)
+
+    meta_params = on_meta(params)
+    count_both("b_prefill", lambda: prefill(cfg, params, {"tokens": tokens}),
+               lambda: prefill(cfg, meta_params, {"tokens": on_meta(tokens)}),
+               model_flops(n, tokens.numel(), "prefill"), b["prefill_ms"][0] / 1e3,
+               "phase 4's (b) prefill")
+    state = {"params": params, "opt": init_opt_state(OptimizerConfig(**TRAIN_OPT), params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    meta_state = on_meta(state)
+    count_both("c_train_step", lambda: step(state, batch),
+               lambda: step(meta_state, on_meta(batch)),
+               model_flops(n, batch["tokens"].numel(), "train"),
+               train_out["shapes"]["c_default"]["median_host_s"],
+               "phase 5's (c) median host step")
+    del params, meta_params, state, meta_state, batch, tokens
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[cost] phase 11 in {out['seconds']:.2f} s smi={gpu_state()}")
+    return out
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2853,6 +2989,8 @@ def main(argv=None) -> int:
     flash_paths.update({f"{path}_{AUDIO_ARCH}": n for path, n in audio_out["launches"].items()})
     mesh_out = phase_mesh(dev, wrappers, serve_out)
     flash_paths["mesh_serve"] = mesh_out["launches"]["flash_attention"]
+    cost_out = phase_cost(dev, cfg, wrappers, serve_out, train_out, setup["smi"])
+    flash_paths.update({f"cost_{k}": n for k, n in cost_out["launches"].items()})
     launches["flash_attention"] = sum(flash_paths.values())
 
     report = []
@@ -2891,7 +3029,7 @@ def main(argv=None) -> int:
         report.append(row)
     phases = {"slice": slice_out, "serve": serve_out, "train": train_out,
               "gateway": gateway_out, "families": families_out, "ssm": ssm_out,
-              "audio": audio_out, "mesh": mesh_out}
+              "audio": audio_out, "mesh": mesh_out, "cost": cost_out}
     log(f"[report] build_s={setup['build_s']:.3f} total_s={time.perf_counter() - t_start:.2f} "
         f"phases={json.dumps(phases)}")
     print(json.dumps({"kernels": report}))

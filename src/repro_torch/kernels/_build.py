@@ -99,6 +99,12 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def launches_kernel(t: torch.Tensor) -> bool:
+    """:func:`on_cuda` for a wrapper whose plain version also runs on the
+    meta device, which computes shapes only: False there."""
+    return t.device.type != "meta" and on_cuda(t)
+
+
 def launch(name: str, symbol: str, argtypes: list, device, *args) -> None:
     """Call ``symbol`` of ``csrc/<name>.cu`` with ``args`` and the current
     stream of ``device`` as its last argument, on that device; raise if the

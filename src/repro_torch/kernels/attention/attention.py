@@ -3,16 +3,22 @@
 ``flash_attention`` of ``src/repro/kernels/attention/attention.py``.
 
 The wrapper checks its arguments, then takes the plain PyTorch version
-(:func:`.ref.attention_ref`) for tensors on the CPU and launches the kernel
-for tensors on a CUDA device, on the current stream.
-``flash_attention.launches`` counts the launches.
+(:func:`.ref.attention_ref`) for tensors on the CPU (and on the meta
+device, which computes shapes only) and launches the kernel for tensors on
+a CUDA device, on the current stream. ``flash_attention.launches`` counts
+the launches. Under the cost counter (:mod:`repro_torch.utils.cost`) a
+launch counts as the plain version on the same shapes, so a call counts
+the same on every device.
 
 Both devices go through one ``torch.autograd.Function``. Its backward
-recomputes the plain version under autograd and returns its gradients: the
-TPU kernel has no backward kernel either (the JAX package differentiates
-through its checkpointed ``chunked_attention``). The recompute holds the
-(BH, Sq, Sk) probabilities for the length of the backward; the forward
-saves only q, k and v.
+recomputes the plain version's probabilities under autograd and returns
+its gradients: the TPU kernel has no backward kernel either (the JAX
+package differentiates through its checkpointed ``chunked_attention``).
+Like XLA's recompute there, it does not recompute the output's product
+p v, which no gradient reads: the two products of its gradient are those
+autograd's ``bmm`` backward takes. The recompute holds the (BH, Sq, Sk)
+probabilities for the length of the backward; the forward saves only q, k
+and v.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ import math
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from ...utils.cost import counted_as
+from .ref import attention_probs, attention_ref, expand_kv
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -59,19 +66,24 @@ def _kernel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, kernel):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        if _build.on_cuda(q):
-            return _kernel_forward(q, k, v, causal)
+        if kernel:
+            with counted_as(attention_ref, q, k, v, causal=causal):
+                return _kernel_forward(q, k, v, causal)
         return attention_ref(q, k, v, causal=causal)
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = attention_ref(*inputs, causal=ctx.causal)
-        return (*torch.autograd.grad(out, inputs, grad_out), None)
+            p = attention_probs(q, k, causal=ctx.causal)
+            vf = expand_kv(v, q.shape[0]).float()
+        g = grad_out.float()
+        grad_p = g.bmm(vf.detach().transpose(1, 2))
+        grad_vf = p.detach().transpose(1, 2).bmm(g)
+        return (*torch.autograd.grad((p, vf), (q, k, v), (grad_p, grad_vf)), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -102,8 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} must be contiguous float32 "
                              f"or bfloat16 like q ({q.dtype}) on {q.device}, got "
                              f"{t.dtype} on {t.device}")
-    _build.on_cuda(q)  # raises for a device that has neither path
-    return _FlashAttention.apply(q, k, v, causal)
+    # raises for a device that has neither path
+    return _FlashAttention.apply(q, k, v, causal, _build.launches_kernel(q))
 
 
 flash_attention.launches = 0

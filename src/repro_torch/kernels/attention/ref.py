@@ -26,7 +26,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """q: (BH, Sq, hd); k/v: (BH, Sk, hd), or (BH / G, Sk, hd) for G query
     heads per KV head (see :func:`expand_kv`) -> (BH, Sq, hd)."""
-    k, v = expand_kv(k, q.shape[0]), expand_kv(v, q.shape[0])
+    p = attention_probs(q, k, causal=causal)
+    return torch.bmm(p, expand_kv(v, q.shape[0]).float()).to(q.dtype)
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
+    """The (BH, Sq, Sk) float32 softmax probabilities of :func:`attention_ref`."""
+    k = expand_kv(k, q.shape[0])
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqh,bkh->bqk", q.float(), k.float()) * scale
     if causal:
@@ -35,5 +41,4 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = torch.where(mask[None], s, torch.tensor(NEG_INF, device=q.device))
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
-    return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)
+    return p / p.sum(-1, keepdim=True)

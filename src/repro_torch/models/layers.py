@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.cost import FUSED_ATTENTION, fused
 from .sharding import constrain, is_dtensor, per_rank_heads, whole_dim
 
 NEG_INF = -1e30
@@ -182,13 +183,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     DTensors, each rank attends its own batch rows and heads
     (:func:`.sharding.per_rank_heads`): DTensor's own rules for these
     reshapes and products plan their redistributions very slowly on a mesh
-    of three dims."""
+    of three dims. The cost counter's fused region, as JAX's."""
     if is_dtensor(q):
-        return per_rank_heads(functools.partial(
+        return fused(FUSED_ATTENTION, per_rank_heads, functools.partial(
             _decode_attention_rows, scale=scale, logit_softcap=logit_softcap),
             q, k_cache, v_cache, (position, k_positions))
-    return _decode_attention_rows(q, k_cache, v_cache, position, k_positions,
-                                  scale=scale, logit_softcap=logit_softcap)
+    return fused(FUSED_ATTENTION, _decode_attention_rows, q, k_cache, v_cache, position,
+                 k_positions, scale=scale, logit_softcap=logit_softcap)
 
 
 def _decode_attention_rows(q, k_cache, v_cache, position, k_positions, *,

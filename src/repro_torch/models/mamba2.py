@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import resolve
+from ..utils.cost import FUSED_ATTENTION, fused
 from .layers import rms_norm
 from .sharding import (constrain, current_mesh, is_dtensor, local_apply, placements_for,
                        replicate_all)
@@ -111,6 +112,31 @@ def chunk_len(S: int, chunk: int) -> int:
     return math.gcd(S, chunk) if S % chunk else chunk
 
 
+def _intra_chunk(xf, dtc, A, Bc, Cc, hpg):
+    """The masked quadratic form within each chunk and the chunk-final
+    states of :func:`ssd_chunked` -> (dAcum, y_diag, Bx)."""
+    Q = xf.shape[2]
+    dA = dtc * A                                       # (B,nc,Q,H) <= 0
+    dAcum = torch.cumsum(dA, dim=2)                    # within the chunk
+    seg = dAcum[:, :, :, None, :] - dAcum[:, :, None, :, :]
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=xf.device).tril()
+    # mask before exp: the masked entries' exp may overflow, and inf
+    # times a zero cotangent would make the gradient NaN
+    Lmat = torch.exp(torch.where(causal[None, None, :, :, None], seg, -math.inf))
+    CB = torch.einsum("bclgn,bcsgn->bclsg", Cc, Bc).repeat_interleave(hpg, dim=-1)
+    scores = CB * Lmat * dtc[:, :, None, :, :]         # (B,nc,l,s,H)
+    y_diag = torch.einsum("bclsh,bcshp->bclhp", scores, xf)
+
+    # chunk-final states. The JAX package's einsum "bcsgn,bcsh,bcshp->
+    # bchpn" sums B over the groups, so every head reads the sum of all
+    # groups' B here (its own group's everywhere else): the same at
+    # G = 1, a fault of the reference at G > 1, reproduced
+    decay_end = torch.exp(dAcum[:, :, -1:, :] - dAcum)  # (B,nc,Q,H)
+    Bx = torch.einsum("bcshp,bcsn->bchpn", xf * (decay_end * dtc)[..., None],
+                      Bc.sum(3))                        # (B,nc,H,P,N)
+    return dAcum, y_diag, Bx
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
                 C_: torch.Tensor, D_skip: torch.Tensor, chunk: int,
                 return_final_state: bool = False):
@@ -135,25 +161,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Te
         Bc = B_.float().reshape(Bb, nc, Q, G, N)
         Cc = C_.float().reshape(Bb, nc, Q, G, N)
 
-        # intra-chunk: the masked quadratic form
-        dA = dtc * A                                       # (B,nc,Q,H) <= 0
-        dAcum = torch.cumsum(dA, dim=2)                    # within the chunk
-        seg = dAcum[:, :, :, None, :] - dAcum[:, :, None, :, :]
-        causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-        # mask before exp: the masked entries' exp may overflow, and inf
-        # times a zero cotangent would make the gradient NaN
-        Lmat = torch.exp(torch.where(causal[None, None, :, :, None], seg, -math.inf))
-        CB = torch.einsum("bclgn,bcsgn->bclsg", Cc, Bc).repeat_interleave(hpg, dim=-1)
-        scores = CB * Lmat * dtc[:, :, None, :, :]         # (B,nc,l,s,H)
-        y_diag = torch.einsum("bclsh,bcshp->bclhp", scores, xf)
-
-        # chunk-final states. The JAX package's einsum "bcsgn,bcsh,bcshp->
-        # bchpn" sums B over the groups, so every head reads the sum of all
-        # groups' B here (its own group's everywhere else): the same at
-        # G = 1, a fault of the reference at G > 1, reproduced
-        decay_end = torch.exp(dAcum[:, :, -1:, :] - dAcum)  # (B,nc,Q,H)
-        Bx = torch.einsum("bcshp,bcsn->bchpn", xf * (decay_end * dtc)[..., None],
-                          Bc.sum(3))                        # (B,nc,H,P,N)
+        # the intra-chunk form and the chunk-final states: the cost
+        # counter's fused region, as JAX's
+        dAcum, y_diag, Bx = fused(FUSED_ATTENTION, _intra_chunk, xf, dtc, A, Bc, Cc, hpg)
 
         # inter-chunk recurrence over nc; each chunk reads the state that
         # enters it

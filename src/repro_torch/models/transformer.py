@@ -29,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig
 from ..device import resolve
 from ..kernels.attention import flash_gqa
+from ..utils.cost import FUSED_ATTENTION, fused
 from .layers import _rounded, apply_rope, decode_attention, gated_mlp, rms_norm
 from .moe import init_moe_params, moe_ffn
 from .sharding import constrain, local_einsum, replicated, sharded_attention
@@ -150,8 +151,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Prefill attention of every family: this module's ``flash_gqa``, read
     when called (so that swapping that one name for ``flash_gqa_ref`` swaps
     the attention of every family), on each rank's own heads under a mesh
-    (:func:`.sharding.sharded_attention`)."""
-    return sharded_attention(flash_gqa, q, k, v, causal=causal)
+    (:func:`.sharding.sharded_attention`); the cost counter's fused region,
+    as JAX's ``chunked_attention`` marks it."""
+    return fused(FUSED_ATTENTION, sharded_attention, flash_gqa, q, k, v, causal=causal)
 
 
 def _attention_block(cfg: ArchConfig, p: Params, x: torch.Tensor,

@@ -267,6 +267,36 @@ def test_flash_gqa_kernel_reads_shared_kv_heads(cuda, causal):
                                tattn.flash_gqa_ref(q, k, v, causal=causal), **ATT_TOL)
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_flash_gqa_on_the_card_counts_as_on_the_cpu_and_the_meta_device(cuda, train):
+    """Under the cost counter the kernel's launch counts as its plain
+    version on the same shapes (a ctypes launch is invisible to a dispatch
+    mode): one ``flash_gqa`` call, and its backward, count exactly what the
+    same call counts on the CPU and on the meta device, in both byte
+    accountings, and the kernel ran."""
+    from repro_torch.utils import cost
+
+    def count(device):
+        g = torch.Generator().manual_seed(6)
+        q = torch.randn(2, 96, 8, 64, generator=g).to(device)
+        k, v = (torch.randn(2, 96, 2, 64, generator=g).to(device) for _ in range(2))
+        if train:
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+        with cost.Counter() as c:
+            out = cost.fused(cost.FUSED_ATTENTION, tattn.flash_gqa, q, k, v, causal=True)
+            if train:
+                out.sum().backward()
+        return (c.cost(), c.cost(cost.FUSED_ATTENTION_FNS), c.product_flops)
+
+    launches = tattn.flash_attention.launches
+    card = count(cuda)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention.launches == launches + 1
+    assert card == count("cpu") == count("meta")
+    # the full square's products: 2 forward; with the backward, 1 recomputed, 4 of the gradient
+    assert card[2] == (7 if train else 2) * 2 * 2 * 8 * 96 * 96 * 64
+
+
 def test_flash_attention_kernel_on_unaligned_rows(cuda):
     """A contiguous view 4 bytes into its storage: the kernel reads float4s,
     so the wrapper hands it an aligned copy."""

@@ -48,6 +48,21 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.split()[-1]) >= 50  # every module of the package
 
 
+@pytest.mark.parametrize("module", ["repro_torch.utils.roofline", "repro_torch.utils.collectives",
+                                    "repro_torch.utils.cost"])
+def test_counters_import_alone_with_jax_and_repro_blocked(module):
+    """The port's counterparts of ``repro.utils.roofline``, ``hlo`` and
+    ``hlo_cost`` import, alone, with no JAX and no ``repro``."""
+    code = _BLOCKED_IMPORT.split("import repro_torch\n")[0] + f"""
+importlib.import_module({module!r})
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def _absolute_imports(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):

@@ -2,9 +2,10 @@
 devices on the same meshes: (2, 2) ``data x model`` and (2, 1, 2) ``pod x
 data x model``.
 
-*The port's side* is a 4-rank gloo job started by
-``torch.multiprocessing.spawn`` from a ``FileStore`` in ``tmp_path``, one
-job per mesh, every case in it. Its worker (:func:`_port_worker`) imports
+*The port's side* is one 4-rank gloo job started by
+``torch.multiprocessing.spawn`` from a ``FileStore`` in ``tmp_path``: both
+meshes, one after the other, on one process group, every case on each. Its
+worker (:func:`_port_worker`) imports
 only torch, numpy and ``repro_torch``: it places the parameters by
 ``param_specs`` (``shard_params``), the batch by ``batch_pspecs`` and the
 caches by ``cache_pspecs``, and runs the model under ``mesh_context``.
@@ -42,8 +43,13 @@ the magnitude of the values rounded. The SSM families' JAX side runs ``ssd_chunk
 mask before the ``exp``, as ``test_torch_families.py`` does (JAX's own
 gradient is NaN there; the values are the same).
 
-Each job runs under its own timeout (``PORT_TIMEOUT``, ``JAX_TIMEOUT``):
-a hung rank fails the tests instead of the run.
+Each job runs under its own timeout, so that a hung rank fails the tests
+instead of the run. The port's job writes its progress after every case:
+it fails when ``STALL_TIMEOUT`` passes with no progress, or ``PORT_TIMEOUT``
+in all; the JAX job within ``JAX_TIMEOUT``. On an idle 8-core host the
+(2, 2) mesh's cases took 40 s and the (2, 1, 2) mesh's 109 s (DTensor's
+sharding propagation of each new op costs more on three mesh dims); beside
+five other test workers the (2, 1, 2) mesh alone took longer than 240 s.
 """
 import dataclasses
 import logging
@@ -94,7 +100,8 @@ SERVE_REQUESTS, SERVE_NEW = 8, 6
 TRAIN_ARGS = ["--arch", "granite-3-2b", "--reduced", "--device", "cpu", "--steps", "3",
               "--batch-seqs", "4", "--seq-len", "32", "--num-seqs", "64", "--lr", "1e-2",
               "--log-every", "100", "--ckpt-every", "0"]
-PORT_TIMEOUT = 240
+STALL_TIMEOUT = 240    # seconds with no case finished: a hung rank
+PORT_TIMEOUT = 900     # the port's whole job, both meshes
 JAX_TIMEOUT = 300
 WORLD = 4
 
@@ -285,29 +292,49 @@ def _port_launchers(inp, mesh, ckpt_dir):
             "sharded": [c.tokens for c in sharded.completions], "train": history}
 
 
-def _port_worker(rank, store_path, mesh_key, in_path, out_path, ckpt_dir):
+def _port_mesh(inp, mesh_key, mesh, ckpt_dir, progress):
+    """Every case, the MoE layer, the pods, checkpoint and landing, and the
+    launchers on one mesh of the group."""
+    from repro_torch.launch.mesh import make_host_mesh
+    names = MESHES[mesh_key][1]
+    out = {"cases": {}, "host_mesh": None}
+    for case in CASES:
+        out["cases"][case] = _port_case(case, inp[case], mesh)
+        progress(f"{mesh_key} {case}")
+    out["moe_layer"] = _port_moe_layer(inp["olmoe"], mesh)
+    if "pod" in names:
+        out["psum"] = _port_psum(inp, mesh)
+    out["io"] = _port_checkpoint_and_landing(inp["granite"], mesh, ckpt_dir)
+    progress(f"{mesh_key} io")
+    out["launch"] = _port_launchers(inp["granite"], mesh, ckpt_dir + "-launch")
+    host = make_host_mesh()
+    out["host_mesh"] = (tuple(host.mesh_dim_names), tuple(host.mesh.shape))
+    progress(f"{mesh_key} launch")
+    return out
+
+
+def _port_worker(rank, store_path, in_path, out_path, ckpt_dir, progress_path):
     torch.set_num_threads(1)       # four ranks share the host's cores
     logging.getLogger("torch.distributed").setLevel(logging.ERROR)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
                             rank=rank, world_size=WORLD)
+    t0 = time.perf_counter()
+
+    def progress(stage):
+        if rank == 0:
+            with open(progress_path, "a") as f:
+                f.write(f"{time.perf_counter() - t0:.1f} {stage}\n")
+
     try:
-        from repro_torch.launch.mesh import make_host_mesh, make_mesh
+        from repro_torch.launch.mesh import make_mesh
         with open(in_path, "rb") as f:
             inp = pickle.load(f)
-        shape, names = MESHES[mesh_key]
-        mesh = make_mesh(shape, names)
-        out = {"cases": {}, "host_mesh": None}
-        t0 = time.perf_counter()
-        for case in CASES:
-            out["cases"][case] = _port_case(case, inp[case], mesh)
-        out["moe_layer"] = _port_moe_layer(inp["olmoe"], mesh)
-        if "pod" in names:
-            out["psum"] = _port_psum(inp, mesh)
-        out["io"] = _port_checkpoint_and_landing(inp["granite"], mesh, ckpt_dir)
-        out["launch"] = _port_launchers(inp["granite"], mesh, ckpt_dir + "-launch")
-        host = make_host_mesh()
-        out["host_mesh"] = (tuple(host.mesh_dim_names), tuple(host.mesh.shape))
-        out["seconds"] = time.perf_counter() - t0
+        out = {}
+        for mesh_key, (shape, names) in MESHES.items():
+            t = time.perf_counter()
+            out[mesh_key] = _port_mesh(inp, mesh_key, make_mesh(shape, names),
+                                       f"{ckpt_dir}-{mesh_key}", progress)
+            out[mesh_key]["seconds"] = time.perf_counter() - t
         if rank == 0:
             with open(out_path, "wb") as f:
                 pickle.dump(out, f)
@@ -315,17 +342,26 @@ def _port_worker(rank, store_path, mesh_key, in_path, out_path, ckpt_dir):
         dist.destroy_process_group()
 
 
-def _run_port(tmp, mesh_key, in_path):
-    out_path = tmp / f"port-{mesh_key}.pkl"
+def _run_port(tmp, in_path):
+    """The port's job on both meshes; raises when no case finishes within
+    ``STALL_TIMEOUT`` or the job passes ``PORT_TIMEOUT``, naming the last
+    stage done."""
+    out_path, progress = tmp / "port.pkl", tmp / "port-progress.txt"
+    progress.touch()
     ctx = mp.start_processes(_port_worker, nprocs=WORLD, join=False, start_method="spawn",
-                             args=(str(tmp / f"store-{mesh_key}"), mesh_key, str(in_path),
-                                   str(out_path), str(tmp / f"ckpt-{mesh_key}")))
-    deadline = time.monotonic() + PORT_TIMEOUT
+                             args=(str(tmp / "store"), str(in_path), str(out_path),
+                                   str(tmp / "ckpt"), str(progress)))
+    start = time.monotonic()
     try:
-        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"the port's job on mesh {mesh_key} passed "
-                                   f"{PORT_TIMEOUT} s")
+        while not ctx.join(timeout=5):
+            now = time.monotonic()
+            stalled = time.time() - progress.stat().st_mtime > STALL_TIMEOUT
+            if stalled or now - start > PORT_TIMEOUT:
+                done = progress.read_text().strip().splitlines()
+                raise TimeoutError(
+                    f"the port's job {'made no progress for' if stalled else 'passed'} "
+                    f"{STALL_TIMEOUT if stalled else PORT_TIMEOUT} s, at {now - start:.0f} s; "
+                    f"last stage done: {done[-1] if done else 'none'}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -514,7 +550,7 @@ def runs(tmp_path_factory):
     jax_job = subprocess.Popen([sys.executable, __file__, "jax", str(in_path), str(jax_out)],
                                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
-        port = {key: _run_port(tmp, key, in_path) for key in MESHES}
+        port = _run_port(tmp, in_path)
         log, _ = jax_job.communicate(timeout=JAX_TIMEOUT)
     finally:
         if jax_job.poll() is None:
